@@ -2,8 +2,9 @@
 
 The same relativistic path tracer on an NVIDIA GPU: every module mirrors
 its counterpart's path under `rrt_tpu/`, plain tensor code is PyTorch,
-and the traversal that the JAX package ran as a Pallas TPU kernel is a
-CUDA kernel written for Hopper (`ops/csrc/trace_kernel.cu`). The package
+and each Pallas TPU kernel of the JAX package is a CUDA kernel written for
+Hopper (`ops/csrc/`: the traversal, the bench's toolchain probe and the
+cost micro-probes). The package
 imports `torch` and never `jax`; the numpy-only host modules of `rrt_tpu`
 (COLLADA, PNG, mesh, clusters, config, film, stats) are reused as they are.
 """

@@ -533,7 +533,7 @@ def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
     if n == 0:
         return out
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())
-    lib = build.load_library()
+    lib = build.load_library("trace")
     rc = lib.rrt_trace(
         ptr(o), ptr(d), ptr(min_t), ptr(max_t), n,
         ptr(tab.params), ptr(tab.tri), ptr(tab.cl), ptr(tab.sup),

@@ -5,7 +5,9 @@ Cornell box (floor at y = 0, two units across) with two diffuse spheres and
 one area light under the ceiling, in the shape of CBspheres_lambertian; the
 default black hole at (0, 1, 0) lies inside it. `uv_sphere_box` builds a
 procedural scene of more than 4096 triangles, so that traversal runs over
-several triangle parts.
+several triangle parts. `cbox_dense` is the bench's BVH-scale scene: the
+same box, light and camera with a 28,560-triangle mesh in place of the
+spheres.
 """
 from __future__ import annotations
 
@@ -19,12 +21,9 @@ CBOX_SPHERES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "cbox_spheres.dae")
 
 
-def uv_sphere_box() -> collada.SceneInfo:
-    """A UV-sphere mesh of 4512 triangles (48 stacks × 48 slices, radius
-    0.5) inside a closed diffuse box [-1, 1]³, with a camera: 4524
-    triangles, padded to 4544 rows, make three parts of 2048 rows."""
-    stacks = slices = 48
-    center, radius = (0.3, 0.4, -0.1), 0.5
+def _uv_sphere(stacks, slices, center, radius):
+    """Vertices and triangles of a closed UV sphere: 2·slices·(stacks - 1)
+    triangles."""
     verts = []
     for i in range(stacks + 1):
         th = np.pi * i / stacks
@@ -43,6 +42,14 @@ def uv_sphere_box() -> collada.SceneInfo:
                 polys.append([a, b, d])
             if i < stacks - 1:
                 polys.append([a, d, c])
+    return verts, polys
+
+
+def uv_sphere_box() -> collada.SceneInfo:
+    """A UV-sphere mesh of 4512 triangles (48 stacks × 48 slices, radius
+    0.5) inside a closed diffuse box [-1, 1]³, with a camera: 4524
+    triangles, padded to 4544 rows, make three parts of 2048 rows."""
+    verts, polys = _uv_sphere(48, 48, (0.3, 0.4, -0.1), 0.5)
     box = np.array([[x, y, z] for x in (-1.0, 1.0) for y in (-1.0, 1.0)
                     for z in (-1.0, 1.0)])
     quads = [[0, 1, 3, 2], [4, 6, 7, 5], [0, 4, 5, 1], [2, 3, 7, 6],
@@ -59,3 +66,23 @@ def uv_sphere_box() -> collada.SceneInfo:
         collada.Node(transform=eye, name="box", instance=collada.PolymeshInfo(
             vertices=box, polygons=box_polys, material=white)),
     ])
+
+
+def cbox_dense() -> collada.SceneInfo:
+    """The bench's BVH-scale scene, standing in for CBbunny (28.6k
+    triangles): `CBOX_SPHERES` with its two spheres replaced by one closed
+    white UV-sphere mesh of 120 stacks × 120 slices (28,560 triangles,
+    radius 0.4, on the floor at (0.15, 0.4, -0.1), so the default hole at
+    (0, 1, 0) stays 0.62 from its centre, outside it). With the box's 16
+    triangles that is 28,576 triangles in 28,608 rows, CBbunny's row
+    count: more than 8192, so clusters of 8, in 14 parts of 2048 rows."""
+    info = collada.load(CBOX_SPHERES)
+    white = info.find(collada.SphereInfo)[0].instance.material
+    verts, polys = _uv_sphere(120, 120, (0.15, 0.4, -0.1), 0.4)
+    mesh = collada.Node(transform=np.eye(4), name="dense_mesh",
+                        instance=collada.PolymeshInfo(
+                            vertices=verts, polygons=polys,
+                            material=white))
+    info.nodes = [n for n in info.nodes
+                  if not isinstance(n.instance, collada.SphereInfo)] + [mesh]
+    return info

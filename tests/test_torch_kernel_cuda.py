@@ -1,4 +1,6 @@
-"""The CUDA trace kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the
+trace kernel (Cornell box, a 3-part scene and the 14-part BVH-scale
+scene), the toolchain probe and the eight cost micro-probes.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -9,10 +11,12 @@ import pytest
 import torch
 
 from rrt_tpu_torch.convert import black_hole_from_arrays
+from rrt_tpu_torch.ops import probe as tprobe
 from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
 from rrt_tpu_torch.scene.build import build_scene, load_scene
-from rrt_tpu_torch.scenes import CBOX_SPHERES, uv_sphere_box
+from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense, uv_sphere_box
+from rrt_tpu_torch.tools import r5prim
 from rrt_tpu_torch.types import Rays
 
 N_SEG = 63
@@ -40,13 +44,17 @@ def _scene(name, device):
         scene, _ = load_scene(CBOX_SPHERES, device, 256, 256)
         return (scene, black_hole_from_arrays((0, 1, 0), 0.1, 0.1, device),
                 (-0.8, 0.35, -0.8), (0.8, 1.15, 0.8))
+    if name == "dense":
+        scene, _ = build_scene(cbox_dense(), device, 128, 128)
+        return (scene, black_hole_from_arrays((0, 1, 0), 0.1, 0.1, device),
+                (-0.8, 0.35, -0.8), (0.8, 1.15, 0.8))
     scene, _ = build_scene(uv_sphere_box(), device)
     return (scene, black_hole_from_arrays((-0.45, -0.35, 0.4), 0.08, 0.1,
                                           device), (-0.9,) * 3, (0.9,) * 3)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cbox", "parts"])
+@pytest.mark.parametrize("name", ["cbox", "parts", "dense"])
 @pytest.mark.parametrize("curved,occlusion", [(False, False), (True, False),
                                               (True, True)],
                          ids=["flat", "curved", "any-hit"])
@@ -105,3 +113,36 @@ def test_wrapper_rejects_bad_inputs(device):
     cpu_tab = tk.build_tables(scene.to("cpu"), bh.to("cpu"))
     with pytest.raises(ValueError, match="params"):
         tk.trace_rays(cpu_tab, rays.o, rays.d, rays.min_t, rays.max_t, **kw)
+
+
+@pytest.mark.cuda
+def test_probe_kernel_matches_plain(device):
+    x = torch.tensor(np.random.default_rng(1).normal(size=tprobe.SHAPE),
+                     dtype=torch.float32, device=device)
+    before = tprobe.LAUNCHES
+    k = tprobe.probe_kernel(x)
+    assert tprobe.LAUNCHES == before + 1
+    assert torch.equal(k, tprobe.probe_reference(x))
+    assert tprobe.probe(device) == 2048.0
+    with pytest.raises(ValueError, match="x:"):
+        tprobe.probe_kernel(x.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prim", r5prim.PROBES)
+@pytest.mark.parametrize("n_iter", [1, 64])
+def test_r5prim_kernel_matches_plain(device, prim, n_iter):
+    """Exact for the integer-driven probes, rtol 1e-6 for the others (the
+    kernel is built without FMA contraction, so most agree exactly)."""
+    x = torch.tensor(np.random.default_rng(n_iter).uniform(
+        0.5, 2.0, r5prim.SHAPE), dtype=torch.float32, device=device)
+    before = r5prim.LAUNCHES[prim]
+    k, place = r5prim.probe_kernel(prim, x, n_iter, return_place=True)
+    assert r5prim.LAUNCHES[prim] == before + 1
+    r = r5prim.probe_reference(prim, x, n_iter)
+    if prim in ("fori_chain", "when_rt"):
+        assert torch.equal(k, r)
+    else:
+        torch.testing.assert_close(k, r, rtol=1e-6, atol=0)
+    if prim == "dynread7":
+        assert place in ("shared", "device")
