@@ -30,8 +30,8 @@ import time
 import numpy as np
 import torch
 
-from rrt_tpu.utils.config import RenderConfig
-from rrt_tpu.utils.stats import RenderStats
+from rrt_tpu_torch.utils.config import RenderConfig
+from rrt_tpu_torch.utils.stats import RenderStats
 
 METRIC = "camera_rays_per_sec_curved_gi_256x256_16spp_d5"
 PRIMARY = dict(width=256, height=256, ns_aa=16, ns_area_light=4,

@@ -15,9 +15,9 @@ import time
 
 import torch
 
-from rrt_tpu.utils.config import BlackHoleConfig, Illum, RenderConfig
 from rrt_tpu_torch.render.renderer import Renderer
 from rrt_tpu_torch.scene.build import load_scene
+from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
 
 # flags of rrt_tpu.cli that this port does not serve yet (see ROADMAP.md)
 NOT_PORTED = {

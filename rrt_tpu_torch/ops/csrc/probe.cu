@@ -21,10 +21,13 @@ __global__ void __launch_bounds__(TILE)
 }  // namespace
 
 // Launches the probe on `stream`; x and out are device memory of TILE
-// floats. Returns cudaGetLastError().
+// floats on `device`, which is made current only when it is not. Returns
+// cudaGetLastError().
 extern "C" int rrt_probe(const float* x, float* out, int device,
                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int cur = -1;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   probe_kernel<<<1, TILE, 0, static_cast<cudaStream_t>(stream)>>>(x, out);
   return static_cast<int>(cudaGetLastError());

@@ -10,8 +10,6 @@ does not work stops the bench.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 SHAPE = (8, 128)
@@ -25,29 +23,41 @@ def probe_reference(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0
 
 
+_FN = None
+
+
+def _probe_fn():
+    """The library's `rrt_probe`, resolved once per process (the build
+    and the library load happen on the first call)."""
+    global _FN
+    if _FN is None:
+        from rrt_tpu_torch.ops import build
+        lib = build.load_library("probe")
+        _FN = (lib.rrt_probe, lib.rrt_probe_error_string)
+    return _FN
+
+
 def probe_kernel(x: torch.Tensor) -> torch.Tensor:
     """x * 2 for one float32 (8, 128) contiguous tile. A CPU tensor goes
     to `probe_reference`; a CUDA tensor to the kernel, built on first use;
     anything else raises. Each launch adds one to `LAUNCHES`."""
     global LAUNCHES
-    if x.device.type == "cpu":
-        return probe_reference(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return probe_reference(x)
         raise ValueError(f"no probe kernel for device {x.device}")
-    if x.dtype != torch.float32 or tuple(x.shape) != SHAPE \
+    if x.dtype != torch.float32 or x.shape != SHAPE \
             or not x.is_contiguous():
         raise ValueError(f"x: expected contiguous float32 {SHAPE}, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    from rrt_tpu_torch.ops import build
-    lib = build.load_library("probe")
+    fn, err = _FN or _probe_fn()
     out = torch.empty_like(x)
-    rc = lib.rrt_probe(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        x.device.index,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    index = x.get_device()
+    rc = fn(x.data_ptr(), out.data_ptr(), index,
+            torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError("probe kernel launch failed: "
-                           + lib.rrt_probe_error_string(rc).decode())
+                           + err(rc).decode())
     LAUNCHES += 1
     return out
 

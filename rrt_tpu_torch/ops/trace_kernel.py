@@ -63,6 +63,10 @@ N_PARAMS = 20
 
 # kernel launches made by `trace_rays`; read by tests and chip_smoke.py
 LAUNCHES = 0
+# the last launch's grid, block width, resident blocks per SM, traversal
+# ("per-lane" or "cooperative") and where its box and triangle tables were
+# read from ("shared" memory or "device" memory)
+LAST_LAUNCH: dict = {}
 
 
 def cs_k(n_tris: int) -> int:
@@ -76,13 +80,18 @@ class TraceTables:
     """The traversal's read-only inputs, on one device.
 
     tri rows are [v0 xyz, e1 xyz, e2 xyz, valid, 0, 0]; box rows are
-    [lo xyz, hi xyz, 0, 0]; sphere rows are [centre xyz, radius] with dead
-    rows at radius 0. Superclusters of part p are rows [p·spp, (p+1)·spp),
-    clusters of supercluster u are [u·SUP, (u+1)·SUP), triangles of
-    cluster k are [k·cs_k, (k+1)·cs_k). Sphere prim ids start at
-    `n_tri_rows` and are remapped to the scene's after the trace. `curved`
-    and `n_seg` (the hole's chord count, 1 in flat space) are the mode
-    that every trace through these tables runs in."""
+    [lo xyz, hi xyz, skip, 0]; sphere rows are [centre xyz, radius] with
+    dead rows at radius 0. `skip` lets the kernel pass over work whose
+    result is known: on a cluster row it is the length of the prefix of
+    its triangle rows that holds every valid one, on a supercluster row the
+    bitmask of its clusters with any valid row (an empty cluster's box
+    fails every slab); the plain version does not read it. Superclusters
+    of part p are rows [p·spp, (p+1)·spp), clusters of supercluster u are
+    [u·SUP, (u+1)·SUP), triangles of cluster k are [k·cs_k, (k+1)·cs_k).
+    Sphere prim ids start at `n_tri_rows` and are remapped to the scene's
+    after the trace. `curved` and `n_seg` (the hole's chord count, 1 in
+    flat space) are the mode that every trace through these tables runs
+    in."""
 
     params: torch.Tensor   # (N_PARAMS,) f32
     tri: torch.Tensor      # (R, 12) f32
@@ -122,8 +131,10 @@ def _fail_empty(lo, hi):
     return (torch.where(bad, BIG, lo), torch.where(bad, BIG, hi))
 
 
-def _box_rows(lo, hi):
-    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1).contiguous()
+def _box_rows(lo, hi, skip=None):
+    skip = torch.zeros_like(lo[:, 0]) if skip is None else skip.to(lo.dtype)
+    return torch.cat([lo, hi, skip[:, None], torch.zeros_like(lo[:, :1])],
+                     dim=1).contiguous()
 
 
 def build_tables(scene: SceneData, bh: Optional[BlackHoleParams]
@@ -170,6 +181,11 @@ def build_tables(scene: SceneData, bh: Optional[BlackHoleParams]
     n_rows = K_pad * cs
     tri = torch.zeros((n_rows, 12), dtype=f32, device=dev)
     tri[:T] = rows
+    valid = (tri[:, 9] > 0).reshape(K_pad, cs)
+    last = torch.arange(1, cs + 1, device=dev)
+    cl_prefix = torch.where(valid, last, 0).amax(dim=1)
+    sup_mask = ((cl_prefix > 0).reshape(-1, SUP).to(torch.int64)
+                << torch.arange(SUP, device=dev)).sum(dim=1)
 
     center = scene.sph_center.to(f32)
     radius = scene.sph_radius.to(f32)
@@ -208,7 +224,8 @@ def build_tables(scene: SceneData, bh: Optional[BlackHoleParams]
     n_live = scene.n_live_spheres
     return TraceTables(
         params=params, tri=tri.contiguous(),
-        cl=_box_rows(cl_lo, cl_hi), sup=_box_rows(sup_lo, sup_hi),
+        cl=_box_rows(cl_lo, cl_hi, cl_prefix),
+        sup=_box_rows(sup_lo, sup_hi, sup_mask),
         part=_box_rows(part_lo, part_hi), sph=sph.contiguous(),
         n_parts=n_parts, spp=K_pad // n_parts // SUP, cs_k=cs,
         n_live_sph=S if n_live < 0 else min(n_live, S),
@@ -501,9 +518,23 @@ def _check(name, a, dev, shape, table=False):
                          + (" and 16-byte aligned" if table else ""))
 
 
+# where the tables of a launch lived, by the layout code `rrt_trace` reports
+_LAYOUTS = (("shared", "shared"), ("shared", "device"), ("device", "device"))
+_FN = None
+
+
+def _trace_fn():
+    """The library's `rrt_trace`, resolved once per process."""
+    global _FN
+    if _FN is None:
+        from rrt_tpu_torch.ops import build
+        lib = build.load_library("trace")
+        _FN = (lib.rrt_trace, lib.rrt_error_string)
+    return _FN
+
+
 def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
-    from rrt_tpu_torch.ops import build
-    global LAUNCHES
+    global LAUNCHES, LAST_LAUNCH
     n, dev = o.shape[0], o.device
     f32, i32 = torch.float32, torch.int32
     for name, a, shape in (("o", o, (n, 3)), ("d", d, (n, 3)),
@@ -518,8 +549,15 @@ def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
         _check(name, a, dev, shape, table=True)
     if tab.n_live_sph > tab.sph.shape[0]:
         raise ValueError("more live spheres than sphere rows")
+    if tab.cs_k not in (8, 16) or not 1 <= tab.spp <= 32:
+        raise ValueError(f"clusters of {tab.cs_k} and {tab.spp} "
+                         "superclusters a part: the kernel takes 8 or 16 "
+                         "and 1 to 32")
     if 3 * n >= 2 ** 31:
         raise ValueError(f"{n} rays: the kernel indexes with 32-bit ints")
+    if tab.cl.shape[0] >= 2 ** 21:
+        raise ValueError(f"{tab.cl.shape[0]} clusters: the kernel packs a "
+                         "cluster's index in 21 bits")
     out = TraceOut(
         hit=torch.empty((n,), dtype=torch.bool, device=dev),
         absd=torch.empty((n,), dtype=torch.bool, device=dev),
@@ -532,22 +570,27 @@ def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
         ncull=torch.empty((n,), dtype=i32, device=dev))
     if n == 0:
         return out
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
-    lib = build.load_library("trace")
-    rc = lib.rrt_trace(
-        ptr(o), ptr(d), ptr(min_t), ptr(max_t), n,
-        ptr(tab.params), ptr(tab.tri), ptr(tab.cl), ptr(tab.sup),
-        ptr(tab.part), ptr(tab.sph),
-        tab.n_parts, tab.spp, tab.cs_k, tab.n_live_sph, tab.n_tri_rows,
-        tab.n_seg, int(tab.curved), int(occlusion),
-        ptr(out.hit), ptr(out.absd), ptr(out.t), ptr(out.prim),
-        ptr(out.seg), ptr(out.seg_o), ptr(out.seg_d), ptr(out.nisect),
-        ptr(out.ncull), dev.index,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    fn, err = _trace_fn()
+    queue = torch.zeros(1, dtype=i32, device=dev)   # the launch's ray queue
+    info = (ctypes.c_int * 6)()
+    p = lambda a: a.data_ptr()
+    rc = fn(p(o), p(d), p(min_t), p(max_t), n,
+            p(tab.params), p(tab.tri), p(tab.cl), p(tab.sup), p(tab.part),
+            p(tab.sph), tab.n_parts, tab.spp, tab.cs_k, tab.n_live_sph,
+            tab.n_tri_rows, tab.sph.shape[0], tab.n_seg, int(tab.curved),
+            int(occlusion), p(out.hit), p(out.absd), p(out.t), p(out.prim), p(out.seg),
+            p(out.seg_o), p(out.seg_d), p(out.nisect), p(out.ncull),
+            p(queue), ctypes.addressof(info), dev.index,
+            torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError("trace kernel launch failed: "
-                           + lib.rrt_error_string(rc).decode())
+                           + err(rc).decode())
     LAUNCHES += 1
+    boxes, tris = _LAYOUTS[info[2]]
+    LAST_LAUNCH = dict(grid=info[0], threads=info[4],
+                       blocks_per_sm=info[1], tables_in=boxes,
+                       traversal="cooperative" if info[5] else "per-lane",
+                       triangles_in=tris, smem_bytes=info[3])
     return out
 
 

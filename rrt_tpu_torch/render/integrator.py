@@ -20,13 +20,13 @@ from typing import Optional
 
 import torch
 
-from rrt_tpu.utils.config import Illum, RenderConfig
 from rrt_tpu_torch.geometry import trace as tracer
 from rrt_tpu_torch.ops.trace_kernel import TraceTables
 from rrt_tpu_torch.render import bsdf as bsdflib
 from rrt_tpu_torch.render import lights as lightlib
 from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
 from rrt_tpu_torch.utils import math3d as m3
+from rrt_tpu_torch.utils.config import Illum, RenderConfig
 
 PI = math.pi
 RR_PROB = 0.7  # Russian roulette continue probability (part1_code.cpp:82)

@@ -21,15 +21,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from rrt_tpu.render import film
-from rrt_tpu.utils.config import Illum, RenderConfig
-from rrt_tpu.utils.stats import PhaseTimer, RenderStats
 from rrt_tpu_torch.convert import black_hole_from_arrays
 from rrt_tpu_torch.ops.trace_kernel import build_tables
+from rrt_tpu_torch.render import film
 from rrt_tpu_torch.render.integrator import _mask_rays, est_radiance
 from rrt_tpu_torch.render.lights import is_delta_light
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import BlackHoleParams, SceneData
+from rrt_tpu_torch.utils.config import Illum, RenderConfig
+from rrt_tpu_torch.utils.stats import PhaseTimer, RenderStats
 
 
 def make_black_hole(cfg: RenderConfig, device) -> Optional[BlackHoleParams]:

@@ -16,10 +16,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from rrt_tpu.geometry import clusters as cl
-from rrt_tpu.io import collada
-from rrt_tpu.scene import mesh as meshlib
 from rrt_tpu_torch.convert import scene_from_arrays
+from rrt_tpu_torch.geometry import clusters as cl
+from rrt_tpu_torch.io import collada
+from rrt_tpu_torch.scene import mesh as meshlib
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import (
     BSDF_DIFFUSE, BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET, BSDF_MIRROR,

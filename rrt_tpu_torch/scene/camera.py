@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from rrt_tpu.io.collada import CameraInfo
+from rrt_tpu_torch.io.collada import CameraInfo
 from rrt_tpu_torch.types import Rays
 
 

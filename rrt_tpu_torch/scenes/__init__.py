@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 
-from rrt_tpu.io import collada
+from rrt_tpu_torch.io import collada
 
 CBOX_SPHERES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "cbox_spheres.dae")
@@ -68,17 +68,20 @@ def uv_sphere_box() -> collada.SceneInfo:
     ])
 
 
-def cbox_dense() -> collada.SceneInfo:
+def cbox_dense(stacks: int = 120, slices: int = 120) -> collada.SceneInfo:
     """The bench's BVH-scale scene, standing in for CBbunny (28.6k
     triangles): `CBOX_SPHERES` with its two spheres replaced by one closed
     white UV-sphere mesh of 120 stacks × 120 slices (28,560 triangles,
     radius 0.4, on the floor at (0.15, 0.4, -0.1), so the default hole at
     (0, 1, 0) stays 0.62 from its centre, outside it). With the box's 16
     triangles that is 28,576 triangles in 28,608 rows, CBbunny's row
-    count: more than 8192, so clusters of 8, in 14 parts of 2048 rows."""
+    count: more than 8192, so clusters of 8, in 14 parts of 2048 rows.
+    Other `stacks` and `slices` give the same scene at other sizes (160 ×
+    160: 50,880 mesh triangles, whose box tables outgrow a block's shared
+    memory in the trace kernel)."""
     info = collada.load(CBOX_SPHERES)
     white = info.find(collada.SphereInfo)[0].instance.material
-    verts, polys = _uv_sphere(120, 120, (0.15, 0.4, -0.1), 0.4)
+    verts, polys = _uv_sphere(stacks, slices, (0.15, 0.4, -0.1), 0.4)
     mesh = collada.Node(transform=np.eye(4), name="dense_mesh",
                         instance=collada.PolymeshInfo(
                             vertices=verts, polygons=polys,

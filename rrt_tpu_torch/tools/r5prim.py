@@ -41,6 +41,14 @@ SHAPE = (1, 8, 128)
 # iteration counts of the slope (the TPU tool's) and of the plain timing
 N1, N2, N_PLAIN = 20000, 100000, 64
 
+# float32 operations per lane and iteration as ops/csrc/r5prim.cu writes
+# them (a slab: 3 divisions, 12 subtractions and products, 12 min/max, 2
+# compares; a sweep16 test: ~27; shuffles and integer steps count one
+# each); the least time of a launch is these over the card's float32 peak
+OPS_PER_ITER = dict(gate_full=35, gate_nowhen=35, gate_nored=33,
+                    reduce_rt=22, when_rt=5, sweep16=434, fori_chain=4,
+                    dynread7=21)
+
 # kernel launches made by `probe_kernel`, per probe; read by chip_smoke.py
 LAUNCHES = dict.fromkeys(PROBES, 0)
 

@@ -20,7 +20,6 @@ from rrt_tpu.render.renderer import Renderer as JaxRenderer
 from rrt_tpu.scene.build import build_scene as jax_build_scene
 from rrt_tpu.scene.build import load_scene as jax_load_scene
 from rrt_tpu.types import BlackHoleParams, Rays as JRays
-from rrt_tpu.utils.config import RenderConfig
 from rrt_tpu_torch import bench
 from rrt_tpu_torch.convert import (black_hole_from_arrays, scene_from_arrays,
                                    to_arrays)
@@ -31,6 +30,8 @@ from rrt_tpu_torch.scene.build import build_scene, load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense
 from rrt_tpu_torch.types import Rays
 from rrt_tpu_torch.utils import card as tcard
+from rrt_tpu_torch.utils.config import RenderConfig
+from test_torch_hostmods import jax_config, jax_scene_info
 
 N_SEG = 63
 
@@ -38,7 +39,7 @@ N_SEG = 63
 @pytest.fixture(scope="module")
 def dense():
     info = cbox_dense()
-    js, _ = jax_build_scene(info, 128, 128)
+    js, _ = jax_build_scene(jax_scene_info(info), 128, 128)
     ts, _ = build_scene(info, "cpu", 128, 128)
     return js, ts
 
@@ -130,7 +131,7 @@ def test_bench_result_from_a_cpu_render():
     hdr, _ = r.render()
     st = r.stats(0.5)
     js, jcam = jax_load_scene(CBOX_SPHERES, 256, 256)
-    jr = JaxRenderer(js, jcam, cfg)
+    jr = JaxRenderer(js, jcam, jax_config(cfg))
     jr.render()
     jst = jr.stats()
     for f in ("camera_rays", "shadow_rays", "bounce_rays",

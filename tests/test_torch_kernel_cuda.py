@@ -1,6 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 trace kernel (Cornell box, a 3-part scene and the 14-part BVH-scale
-scene), the toolchain probe and the eight cost micro-probes.
+scene; ragged lane counts from spread origins and from one point, masked
+lanes, a scene whose box tables do not fit in shared memory, launches
+back to back, each in the default build and in the builds that fix its
+traversal lane by lane and cooperative), the toolchain probe and the
+eight cost micro-probes.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -16,10 +20,13 @@ from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
 from rrt_tpu_torch.scene.build import build_scene, load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense, uv_sphere_box
-from rrt_tpu_torch.tools import r5prim
+from rrt_tpu_torch.tools import r5prim, trace_modes
 from rrt_tpu_torch.types import Rays
 
 N_SEG = 63
+# the default build of the trace kernel, and the builds that fix its
+# traversal (`trace_modes.VARIANTS`)
+BUILDS = ("default", "per-lane", "cooperative")
 
 
 @pytest.fixture
@@ -27,6 +34,25 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.fixture(scope="module")
+def trace_builds():
+    """{build: its launch functions}, the variants built once, together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    started = trace_modes.start_variants(BUILDS[1:])
+    fns = {"default": tk._trace_fn()}
+    fns.update({name: trace_modes.load_variant(proc)[0]
+                for name, proc in started.items()})
+    return fns
+
+
+@pytest.fixture(params=BUILDS)
+def build(request, device, trace_builds):
+    """Trace through one build of the kernel for the test."""
+    with trace_modes.using(trace_builds[request.param]):
+        yield request.param
 
 
 def _rays(n, seed, device, lo, hi):
@@ -78,6 +104,109 @@ def test_kernel_matches_plain(device, name, curved, occlusion):
     torch.testing.assert_close(k.t[m], r.t[m], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(k.seg_o[m], r.seg_o[m], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(k.seg_d[m], r.seg_d[m], rtol=1e-5, atol=1e-6)
+
+
+MODES = pytest.mark.parametrize(
+    "curved,occlusion", [(False, False), (True, False), (True, True)],
+    ids=["flat", "curved", "any-hit"])
+
+
+def _agree(k, r, rays, bh, curved):
+    """The kernel's output k equals the plain version's r on calm lanes
+    (hit, absd, prim, seg and both counters; t and the segment to rtol
+    1e-5), and all lanes agree on >= 99.9% of hits."""
+    calm = (~chaotic_lanes(rays.o, rays.d, bh, N_SEG) if curved
+            else torch.ones_like(k.hit))
+    for f in ("hit", "absd", "prim", "seg", "nisect", "ncull"):
+        assert torch.equal(getattr(k, f)[calm], getattr(r, f)[calm]), f
+    assert (k.hit == r.hit).float().mean() >= 0.999
+    m = calm & k.hit
+    torch.testing.assert_close(k.t[m], r.t[m], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(k.seg_o[m], r.seg_o[m], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(k.seg_d[m], r.seg_d[m], rtol=1e-5, atol=1e-6)
+
+
+def _both(tab, rays, occlusion):
+    args = (tab, rays.o, rays.d, rays.min_t, rays.max_t)
+    return (tk.trace_rays(*args, occlusion=occlusion),
+            tk.trace_rays_reference(*args, occlusion=occlusion))
+
+
+@pytest.mark.cuda
+@MODES
+@pytest.mark.parametrize("origins", ["spread", "one point"])
+def test_ragged_lane_counts(device, build, curved, occlusion, origins):
+    """1, 31 and 33 lanes, and one more lane than the launch has resident
+    threads: the queue hands out every ray once. From one point, every
+    warp waits for all its lanes before it takes new rays."""
+    scene, bh, lo, hi = _scene("cbox", device)
+    tab = tk.build_tables(scene, bh if curved else None)
+    warm = _rays(64, 1, device, lo, hi)
+    tk.trace_rays(tab, warm.o, warm.d, warm.min_t, warm.max_t)
+    resident = tk.LAST_LAUNCH["grid"] * tk.LAST_LAUNCH["threads"]
+    assert tk.LAST_LAUNCH["blocks_per_sm"] >= 1
+    assert tk.LAST_LAUNCH["tables_in"] == "shared"
+    if build != "default":
+        assert tk.LAST_LAUNCH["traversal"] == build
+    for n in (1, 31, 33, resident + 1):
+        rays = _rays(n, n, device, lo, hi)
+        if origins == "one point":
+            rays = rays.replace(o=torch.broadcast_to(
+                rays.o[:1], rays.o.shape).contiguous())
+        k, r = _both(tab, rays, occlusion)
+        _agree(k, r, rays, bh, curved)
+
+
+@pytest.mark.cuda
+@MODES
+def test_half_the_lanes_masked(device, build, curved, occlusion):
+    """A seeded random half of the lanes sits at the hole's centre, as the
+    integrator parks masked lanes: they die on segment 0 (curved) and the
+    other half is traced as if alone."""
+    scene, bh, lo, hi = _scene("cbox", device)
+    rays = _rays(65536, 11, device, lo, hi)
+    masked = torch.tensor(np.random.default_rng(12).random(65536) < 0.5,
+                          device=device)
+    rays.o[masked] = bh.position.to(torch.float32)
+    tab = tk.build_tables(scene, bh if curved else None)
+    k, r = _both(tab, rays, occlusion)
+    _agree(k, r, rays, bh, curved)
+    if curved:
+        assert (k.seg[masked] == 0).all() and not k.hit[masked].any()
+        assert (k.nisect[masked] == 0).all() and (k.ncull[masked] == 0).all()
+
+
+@pytest.mark.cuda
+@MODES
+def test_box_tables_in_device_memory(device, build, curved, occlusion):
+    """A 79,616-triangle scene whose box tables outgrow a block's shared
+    memory: the launcher reads them from device memory, with the same
+    results."""
+    scene, _ = build_scene(cbox_dense(200, 200), device, 128, 128)
+    bh = black_hole_from_arrays((0, 1, 0), 0.1, 0.1, device)
+    tab = tk.build_tables(scene, bh if curved else None)
+    rays = _rays(16384, 13, device, (-0.8, 0.35, -0.8), (0.8, 1.15, 0.8))
+    k, r = _both(tab, rays, occlusion)
+    assert tk.LAST_LAUNCH["tables_in"] == "device"
+    assert tk.LAST_LAUNCH["triangles_in"] == "device"
+    _agree(k, r, rays, bh, curved)
+
+
+@pytest.mark.cuda
+@MODES
+def test_launches_back_to_back(device, build, curved, occlusion):
+    """Two launches in a row on one stream, with no sync between: each
+    has its own ray queue."""
+    scene, bh, lo, hi = _scene("parts", device)
+    tab = tk.build_tables(scene, bh if curved else None)
+    a, b = _rays(20000, 21, device, lo, hi), _rays(30000, 22, device, lo, hi)
+    args = lambda x: (tab, x.o, x.d, x.min_t, x.max_t)
+    ka = tk.trace_rays(*args(a), occlusion=occlusion)
+    kb = tk.trace_rays(*args(b), occlusion=occlusion)
+    _agree(ka, tk.trace_rays_reference(*args(a), occlusion=occlusion), a,
+           bh, curved)
+    _agree(kb, tk.trace_rays_reference(*args(b), occlusion=occlusion), b,
+           bh, curved)
 
 
 @pytest.mark.cuda

@@ -15,14 +15,15 @@ import torch
 from rrt_tpu.io.png import read_png
 from rrt_tpu.render.renderer import Renderer as JaxRenderer
 from rrt_tpu.scene.build import load_scene as jax_load_scene
-from rrt_tpu.utils.config import Illum, RenderConfig
 from rrt_tpu_torch import cli
 from rrt_tpu_torch.geometry import trace as ttrace
 from rrt_tpu_torch.render import renderer as renderer_mod
 from rrt_tpu_torch.render.renderer import Renderer
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
+from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
 from rrt_tpu_torch.utils.profile import profile_render
+from test_torch_hostmods import jax_config
 
 
 def _scenes():
@@ -34,7 +35,7 @@ def _scenes():
 def _jax_accumulators(scene, cam, cfg):
     """The JAX renderer's pass loop (Renderer.render) with its
     accumulators (radiance sum, s1, s2, count, done) returned."""
-    r = JaxRenderer(scene, cam, cfg)
+    r = JaxRenderer(scene, cam, jax_config(cfg))
     w, h = cfg.width, cfg.height
     n = w * h
     k, band_rows, n_bands = r._dispatch_plan(n, w, h)
@@ -60,7 +61,7 @@ def test_normal_shading_matches_jax():
     js, jcam, ts, tcam = _scenes()
     cfg = RenderConfig(width=32, height=32, ns_aa=1, illum=Illum.NORMAL,
                        max_dispatch_seconds=0)
-    jimg, _ = JaxRenderer(js, jcam, cfg).render()
+    jimg, _ = JaxRenderer(js, jcam, jax_config(cfg)).render()
     r = Renderer(ts, tcam, cfg, "cpu")
     timg, count = r.render()
     assert (count == 1).all()
@@ -151,7 +152,6 @@ def test_cli_refuses_unported_flags(flag, capsys):
 
 def _flat_renderer(**kw):
     """A small flat-spacetime render of the Cornell box on the CPU."""
-    from rrt_tpu.utils.config import BlackHoleConfig
     ts, tcam = load_scene(CBOX_SPHERES, "cpu", 256, 256)
     cfg = RenderConfig(width=16, height=16,
                        black_hole=BlackHoleConfig(enabled=False), **kw)

@@ -24,6 +24,7 @@ from rrt_tpu_torch.geometry import trace as ttrace
 from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
 from rrt_tpu_torch.scenes import CBOX_SPHERES, uv_sphere_box
+from test_torch_hostmods import jax_scene_info
 from rrt_tpu_torch.types import Rays
 
 N_SEG = 63
@@ -192,7 +193,7 @@ def test_multipart_matches_jax(curved):
     """A procedural scene of three triangle parts (4544 rows) against the
     JAX package's XLA trace."""
     info = uv_sphere_box()
-    js, _ = jax_build_scene(info)
+    js, _ = jax_build_scene(jax_scene_info(info))
     ts = scene_from_arrays(to_arrays(js), "cpu")
     assert tk.build_tables(ts, None).n_parts == 3
     jr, tr = _rays(300, 7, (-0.9,) * 3, (0.9,) * 3)
