@@ -40,15 +40,35 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    ten launches of both kernels in turns); a first profile of the
    BVH-scale render; a small normal-shaded render on the card checked
    against the CPU;
+4b. the differentiable path at full width: one `image_loss` gradient
+   step of the main path's render (256×256, 1 spp, -l 4, -m 5, curved
+   GI): trace launches equal to its trace calls, every leaf's gradient
+   finite and the radius's nonzero; warm walls, peak memory, the memory
+   one replayed trace of 65,536 lanes saves, and the device time split
+   into the trace kernel, the replay's ops (forward and backward) and the
+   rest;
+4c. BASELINE config 4's closed loops (`rrt_tpu_torch.tools.inverse`,
+   rays framed on the box): the radius must come within 0.015 of the
+   truth (at the card's `RADIUS_SEED`: on the in-repo box the loss moves
+   mostly through discrete events, and the loop recovers at some seeds
+   only, in the JAX package too; see that module), the red wall's albedo
+   within 0.08;
+4d. `trace_diff` against the kernel's primal: 400 seeded camera rays,
+   curved; equal hits and prims, >= 99.5% of hit points within 1e-4;
+4e. the env-lit main path through the CLI: a seeded 1024×2048 sky with a
+   sun disk written as EXR, `-e` at the main path's settings in a
+   temporary directory: launches equal to trace calls, a finite image
+   brighter than the same render without `-e`, probability_debug.png
+   written there; its wall and a profile of `sample_L` and `sample_dir`;
 5. the bench (`rrt_tpu_torch.bench`, in-process): probe, build, the
    primary and the BVH-scale cell; its JSON line is printed;
 6. the cost-probe tool's path (`rrt_tpu_torch.tools.r5prim`): every probe
    timed at two iteration counts, beside its plain version;
 7. a JSON line of the kernels, then the ok line.
 
-Each of the three paths (4, 5, 6) is driven with the kernels' launch
-counts set to 0 just before it and read just after: every kernel of the
-path must have launched in it.
+Each of the paths (4, 4b, 4c, 4e, 5, 6) is driven with the kernels'
+launch counts set to 0 just before it and read just after: every kernel
+of the path must have launched in it.
 
 Any failure raises, and the script exits non-zero without the ok line.
 """
@@ -145,6 +165,23 @@ def host_us_per_call(fn, reps):
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+def event_ms(fn, reps):
+    """Median device milliseconds of fn over `reps` calls, each between two
+    CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="smoke test of the port on "
@@ -152,17 +189,24 @@ def main(argv=None):
     ap.add_argument("--old", metavar="PATH",
                     help="an earlier trace_kernel.cu (PR 2's C interface) "
                     "to time in turns with this one")
+    ap.add_argument("--old-envmap", metavar="PATH",
+                    help="an earlier scene/envmap.py whose sample_L is "
+                    "checked equal to this one's and timed with it in turns")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     from rrt_tpu_torch import bench, cli
+    from rrt_tpu_torch.geometry import trace as tracer
+    from rrt_tpu_torch.io.exr import write_exr
     from rrt_tpu_torch.ops import build, probe as tprobe, trace_kernel as tk
+    from rrt_tpu_torch.render import diff
     from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
+    from rrt_tpu_torch.scene import envmap
     from rrt_tpu_torch.scene.build import build_scene, load_scene
     from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense, uv_sphere_box
-    from rrt_tpu_torch.tools import r5prim
+    from rrt_tpu_torch.tools import inverse, r5prim
     from rrt_tpu_torch.tools.trace_modes import (
         BOX, HBM_BYTES_PER_S, box_rays, compile_trace, finish_build,
         flat_args, in_turns, load_variant, main_path_batches, old_trace_fn,
@@ -171,7 +215,8 @@ def main(argv=None):
     from rrt_tpu_torch.utils.card import (card_line, fp32_peak_flops,
                                           max_sm_clock_mhz)
     from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
-    from rrt_tpu_torch.utils.profile import profile_render
+    from rrt_tpu_torch.types import BlackHoleParams
+    from rrt_tpu_torch.utils.profile import profile_call, profile_render
 
     # ---- 1. the card
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -184,6 +229,7 @@ def main(argv=None):
     # earlier trace kernel with --old, beside them)
     t0 = time.perf_counter()
     old_build = compile_trace(args.old, "old") if args.old else None
+    old_envmap_path = args.old_envmap
     started = start_variants(("per-lane", "cooperative"))
     for family in build.FAMILIES:   # a clean build, with ptxas's report
         build.library_path(family).unlink(missing_ok=True)
@@ -486,6 +532,187 @@ def main(argv=None):
     if close < 0.995:
         raise AssertionError("card and CPU renders disagree")
 
+    # ---- 4b. the differentiable path at full width: one image_loss
+    # gradient step of the main path's render at 1 spp
+    dcfg = RenderConfig(width=256, height=256, ns_aa=1, ns_area_light=4,
+                        max_ray_depth=5)
+    dscene, dcam = load_scene(CBOX_SPHERES, dev, 256, 256)
+    dbh = make_black_hole(dcfg, dev)
+    drays = inverse.pixel_rays(dcam, 256, 256, dev)
+    dparams = diff.params_from_scene(dscene, dbh)
+    dtarget = torch.zeros_like(drays.o)
+    names = [f.name for f in dataclasses.fields(diff.SceneParams)]
+
+    def diff_step():
+        """image_loss and its gradient, as `diff.loss_and_grad` takes them,
+        with the integrator's trace work."""
+        leaves = [x.detach().requires_grad_(True) for x in dparams.leaves()]
+        img, work = diff.render_radiance(
+            diff.SceneParams.from_leaves(leaves), dscene, dbh, drays, dcfg,
+            torch.Generator(device=dev).manual_seed(0), with_work=True)
+        loss = torch.mean((img - dtarget) ** 2)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize(dev)
+        return loss, grads, work
+
+    tk.LAUNCHES = 0
+    dloss, dgrads, dwork = diff_step()
+    diff_launches = tk.LAUNCHES
+    if diff_launches != dwork.calls or diff_launches == 0:
+        raise AssertionError(f"{diff_launches} kernel launches for "
+                             f"{dwork.calls} trace calls of a diff step")
+    for name, g in zip(names, dgrads):
+        if g is not None and not torch.isfinite(g).all():
+            raise AssertionError(f"diff step: {name} gradient not finite")
+    g_r = dgrads[names.index("bh_radius")]
+    if g_r is None or not g_r.item() != 0.0:
+        raise AssertionError(f"diff step: bh_radius gradient {g_r}")
+    diff_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        diff_step()
+        diff_walls.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    diff_step()
+    diff_peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    # what one replayed trace of the camera's 65,536 lanes keeps for its
+    # backward pass: the allocation its live output holds
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (dbh.position, dbh.radius, dbh.delta_theta)]
+    torch.cuda.synchronize(dev)
+    mem1 = torch.cuda.memory_allocated(dev)
+    hd = tracer.trace_diff(dscene, BlackHoleParams(*leaves), drays,
+                           tables=tk.build_tables(dscene, dbh))
+    torch.cuda.synchronize(dev)
+    replay_mib = (torch.cuda.memory_allocated(dev) - mem1) / 2 ** 20
+    del hd, leaves
+    dprof = profile_call(diff_step, ranges=("trace_diff.replay",),
+                         device=dev)
+    print(f"[smoke] diff step 256x256 1spp -l 4 -m 5 curved GI: loss "
+          f"{dloss.item():.6g}, d/d radius {g_r.item():.6g}, "
+          f"{diff_launches} kernel launches = trace calls; warm walls (s) "
+          f"{[round(w, 4) for w in diff_walls]}, peak memory "
+          f"{diff_peak_mib:.1f} MiB ({mem0 / 2 ** 20:.1f} MiB before), one "
+          f"replayed trace of 65536 lanes keeps {replay_mib:.1f} MiB "
+          f"({card})")
+    print(f"[smoke] diff step profile: {dprof.report()} ({card})")
+
+    # ---- 4c. BASELINE config 4's closed loops on the card
+    tk.LAUNCHES = 0
+    radius, radius_true, radius_ms = inverse.recover_radius(dev)
+    radius_launches = tk.LAUNCHES
+    tk.LAUNCHES = 0
+    albedo, albedo_true, albedo_ms = inverse.recover_albedo(dev)
+    albedo_launches = tk.LAUNCHES
+    albedo_err = float(np.abs(albedo - albedo_true).max())
+    print(f"[smoke] config 4 radius loop (seed "
+          f"{inverse.RADIUS_SEED['cuda']}): {inverse.RADIUS_STEPS} steps "
+          f"from {inverse.RADIUS_START} end at "
+          f"{radius:.5f} (true {radius_true:.5f}), {radius_ms:.2f} ms per "
+          f"step, {radius_launches} kernel launches ({card})")
+    print(f"[smoke] config 4 albedo loop: red wall {albedo.tolist()} (true "
+          f"{albedo_true.tolist()}), max err {albedo_err:.4f}, "
+          f"{albedo_ms:.2f} ms per step, {albedo_launches} kernel launches "
+          f"({card})")
+    if min(radius_launches, albedo_launches) == 0:
+        raise AssertionError("config 4's loops launched no kernel")
+    if not abs(radius - radius_true) < 0.015:
+        raise AssertionError(f"config 4 radius {radius}, true {radius_true}")
+    if not albedo_err < 0.08:
+        raise AssertionError(f"config 4 albedo error {albedo_err}")
+
+    # ---- 4d. trace_diff against the kernel's primal: 400 seeded camera
+    # rays, curved (the JAX package's rule, tests/test_diff.py:113-127)
+    cscene, ccam = load_scene(CBOX_SPHERES, dev, 64, 64, fov_mode="native")
+    xy = torch.tensor(np.random.default_rng(0).uniform(0.2, 0.8, (400, 2)),
+                      dtype=torch.float32, device=dev)
+    crays = ccam.generate_rays(xy)
+    ctab = tk.build_tables(cscene, bh)
+    hdiff = tracer.trace_diff(cscene, bh, crays, tables=ctab)
+    hprim = tracer.trace(cscene, bh, crays, tables=ctab)
+    if not (torch.equal(hdiff.hit, hprim.hit)
+            and torch.equal(hdiff.prim_id, hprim.prim_id)):
+        raise AssertionError("trace_diff's hits or prims differ from the "
+                             "kernel's")
+    m = hprim.hit
+    diff_close = ((hdiff.p[m] - hprim.p[m]).abs().amax(-1) < 1e-4
+                  ).float().mean().item()
+    print(f"[smoke] trace_diff vs the kernel's primal: 400 rays, "
+          f"{int(m.sum())} hits, equal hits and prims, {diff_close:.4f} of "
+          f"hit points within 1e-4")
+    if not diff_close >= 0.995:
+        raise AssertionError(f"trace_diff hit points agree on {diff_close}")
+
+    # ---- 4e. the env-lit main path through the CLI
+    rng = np.random.default_rng(21)
+    eh, ew = 1024, 2048
+    theta = (np.arange(eh) + 0.5) / eh * np.pi
+    phi = (np.arange(ew) + 0.5) / ew * 2 * np.pi
+    sky = (0.2 + 0.8 * np.cos(theta / 2) ** 2)[:, None, None] \
+        * np.array([0.4, 0.6, 1.0]) * (1 + 0.05 * rng.random((eh, ew, 1)))
+    sun = ((theta[:, None] - 0.6) ** 2 + (phi[None, :] - 2.0) ** 2) < 0.03 ** 2
+    sky[sun] = (2e3, 1.8e3, 1.4e3)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        write_exr(os.path.join(tmp, "sky.exr"), sky.astype(np.float32))
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            tk.LAUNCHES = 0
+            t0 = time.perf_counter()
+            erend = cli.main(["-f", "env.png", "-r", "256", "256", "-s", "16",
+                              "-l", "4", "-m", "5", "-e", "sky.exr",
+                              "--device", "cuda", CBOX_SPHERES])
+            torch.cuda.synchronize()
+            env_wall = time.perf_counter() - t0
+            env_launches = tk.LAUNCHES
+            if not (os.path.getsize("env.png")
+                    and os.path.getsize("probability_debug.png")):
+                raise AssertionError("-e wrote an empty PNG")
+        finally:
+            os.chdir(cwd)
+    if env_launches != erend.last_trace_calls or env_launches == 0:
+        raise AssertionError(f"{env_launches} kernel launches for "
+                             f"{erend.last_trace_calls} env trace calls")
+    rad_sum, _, _, count, _ = erend.last_accumulators
+    ehdr = rad_sum / np.maximum(count[:, None], 1)
+    env_mean = float(ehdr.mean())
+    if not np.isfinite(ehdr).all() or not env_mean > mean_rad:
+        raise AssertionError(f"env-lit mean radiance {env_mean}, without "
+                             f"-e {mean_rad}")
+    eprof = profile_call(erend.render,
+                         ranges=("envmap.sample_L", "envmap.sample_dir"),
+                         device=dev)
+    print(f"[smoke] env-lit main path 256x256 16spp -l 4 -m 5 -e "
+          f"{eh}x{ew}: wall {env_wall:.2f} s, mean radiance {env_mean:.5f} "
+          f"(without -e {mean_rad:.5f}), {env_launches} kernel launches = "
+          f"trace calls ({card})")
+    print(f"[smoke] env render profile: {eprof.report()} ({card})")
+    # sample_L alone on the lanes of one NEE sample of the main path
+    # (256x256 at 16 spp); with --old-envmap, an earlier sample_L in turns
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xi = torch.rand((1 << 20, 2), generator=gen, device=dev)
+    env = erend.scene.env
+    sl_times = {"new": []}
+    sl_fns = {"new": lambda: envmap.sample_L(env, xi)}
+    if old_envmap_path:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("old_envmap",
+                                                      old_envmap_path)
+        old_envmap = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(old_envmap)
+        for got, want in zip(old_envmap.sample_L(env, xi), sl_fns["new"]()):
+            if not torch.equal(got, want):
+                raise AssertionError("sample_L differs from --old-envmap's")
+        sl_fns["old"] = lambda: old_envmap.sample_L(env, xi)
+        sl_times["old"] = []
+    for name in (["old", "new", "new", "old"] if old_envmap_path
+                 else ["new"]):
+        sl_times[name].append(event_ms(sl_fns[name], 5))
+    print("[smoke] sample_L alone, 1048576 lanes, 1024x2048 map: " + "; ".join(
+        f"{name} " + ", ".join(f"{t:.3f}" for t in ts) + " ms"
+        for name, ts in sl_times.items()) + f" ({card})")
+
     # ---- 5. the bench, in-process: the probe kernel and the trace kernel
     tk.LAUNCHES, tprobe.LAUNCHES = 0, 0
     bench_out, diag = bench.run(dev)
@@ -549,6 +776,9 @@ def main(argv=None):
         "render_launch_ms": [w["ms"] for w in render_rows],
         "render_launch_bound_ms": [w["bound_ms"] for w in render_rows],
         "old_vs_new_ms": turns or None,
+        "diff_launches": diff_launches,
+        "env_launches": env_launches,
+        "config4_launches": radius_launches + albedo_launches,
     }, {
         "name": "probe",
         "route": "cuda",

@@ -1,8 +1,8 @@
 """Command-line entry point of the port: `python -m rrt_tpu_torch.cli`.
 
 The flags are those of `rrt_tpu.cli` (reference main.cpp:28-150) that the
-port serves: -s -l -t -m -f -r -c -a -H -b -d -B, --flat, --illum, --seed
-and --thin-lens, plus --device (default cuda; without a card the CLI
+port serves: -s -l -t -m -e -f -r -c -a -H -b -d -B, --flat, --illum,
+--seed and --thin-lens, plus --device (default cuda; without a card the CLI
 exits with an error, and the CPU renders only when asked for with
 `--device cpu`). The JAX package's other flags are refused with an error
 that says they are not ported yet.
@@ -15,13 +15,15 @@ import time
 
 import torch
 
+from rrt_tpu_torch.io.exr import read_exr
+from rrt_tpu_torch.io.png import write_png
 from rrt_tpu_torch.render.renderer import Renderer
 from rrt_tpu_torch.scene.build import load_scene
+from rrt_tpu_torch.scene.envmap import build_envmap, probability_debug_image
 from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
 
 # flags of rrt_tpu.cli that this port does not serve yet (see ROADMAP.md)
 NOT_PORTED = {
-    "-e": dict(dest="envmap"),
     "-p": dict(nargs=4, dest="cell"),
     "--preview": dict(), "--preview-every": dict(),
     "--checkpoint": dict(), "--checkpoint-every": dict(),
@@ -42,6 +44,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-t", type=int, default=1, dest="threads",
                    help="accepted for compatibility; unused")
     p.add_argument("-m", type=int, default=1, dest="max_ray_depth")
+    p.add_argument("-e", dest="envmap", default=None,
+                   help="environment map (.exr)")
     p.add_argument("-f", dest="outfile", default="out.png")
     p.add_argument("-r", nargs=2, type=int, default=[800, 600],
                    metavar=("W", "H"))
@@ -98,9 +102,18 @@ def main(argv=None):
                      "on the CPU")
     print(f"[PathTracer] Device: {device}")
 
+    env = None
+    if args.envmap:
+        print(f"[PathTracer] Loading environment map {args.envmap}")
+        env = build_envmap(read_exr(args.envmap), device)
+        # the reference writes it on every env-light init
+        # (environment_light.cpp:44-47), into the working directory
+        write_png("probability_debug.png", probability_debug_image(env))
+
     print(f"[PathTracer] Input scene file: {args.scene}")
     t0 = time.time()
-    scene, camera = load_scene(args.scene, device, cfg.width, cfg.height)
+    scene, camera = load_scene(args.scene, device, cfg.width, cfg.height,
+                               env=env)
     print(f"[PathTracer] Scene loaded ({time.time() - t0:.2f} sec), "
           f"{scene.n_tris} tri rows, {scene.n_spheres} sphere rows")
     if args.cam_settings:

@@ -3,8 +3,8 @@
 `to_arrays` flattens any dataclass scene (the port's, or the JAX package's
 flax dataclasses, whose leaves `np.asarray` accepts) into a nested dict of
 numpy arrays; `scene_from_arrays` builds the port's `SceneData` from such a
-dict on an explicit device. Tests feed the JAX package's scene through
-both, so that the two packages compute on identical data.
+dict on an explicit device. Tests feed the JAX package's scene through it,
+so that the two packages compute on identical data.
 """
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from rrt_tpu_torch.types import (BSDFTable, BlackHoleParams, LightTable,
-                                 SceneData)
+from rrt_tpu_torch.types import (BSDFTable, BlackHoleParams, EnvMap,
+                                 LightTable, SceneData)
 
 _INT_FIELDS = {"tri_bsdf", "sph_bsdf", "kind"}
 
@@ -53,8 +53,6 @@ def _table(cls, d: dict, device):
 
 def scene_from_arrays(d: dict, device) -> SceneData:
     """Build SceneData on `device` from a `to_arrays` dict."""
-    if d.get("env") is not None:
-        raise NotImplementedError("envmap: see ROADMAP")
     kw = {}
     for f in dataclasses.fields(SceneData):
         v = d.get(f.name)
@@ -66,6 +64,8 @@ def scene_from_arrays(d: dict, device) -> SceneData:
             kw[f.name] = int(v)
         elif v is None:
             kw[f.name] = None
+        elif f.name == "env":
+            kw[f.name] = _table(EnvMap, v, device)
         else:
             kw[f.name] = _tensor(f.name, v, device)
     return SceneData(**kw)
@@ -79,3 +79,4 @@ def black_hole_from_arrays(position, radius, delta_theta, device,
                            radius=f32(radius).reshape(()),
                            delta_theta=f32(delta_theta).reshape(()),
                            enabled=bool(enabled))
+

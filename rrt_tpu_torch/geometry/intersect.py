@@ -100,7 +100,11 @@ def build_hit(scene: SceneData, o, d, hit, t, prim_id, b1, b2) -> Hit:
     # a miss keeps t = max_t (possibly inf): anchor its point at the origin
     t_safe = torch.where(hit, t, torch.zeros_like(t))
     p = o + t_safe[..., None] * d
-    n_sph = (p - scene.sph_center[sid]) / scene.sph_radius[sid][..., None]
+    # a dead sphere row (radius 0) is never a hit, but a scene without a
+    # live sphere gathers one for every lane: divide by a safe radius so
+    # that the unselected branch's gradient stays finite
+    r = torch.where(scene.sph_radius[sid] > 0, scene.sph_radius[sid], 1.0)
+    n_sph = (p - scene.sph_center[sid]) / r[..., None]
     n = torch.where(is_tri[..., None], n_tri, n_sph)
     bsdf = torch.where(is_tri, scene.tri_bsdf[tid], scene.sph_bsdf[sid])
     bsdf = torch.where(hit, bsdf, torch.full_like(bsdf, -1))

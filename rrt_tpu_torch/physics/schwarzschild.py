@@ -11,6 +11,10 @@ effective curvature; that is kept, since render parity depends on it.
 The operations are written in the same forms as the JAX package's
 (reciprocal multiplies for the normalisations, the same clamps), so that
 both packages round alike on calm lanes.
+
+Under autograd three stages of the step (u', the new radius and the
+chord) pass through `grad_guard`, whose backward scrubs and clips the
+cotangent, as the JAX package's `grad_guard` does.
 """
 from __future__ import annotations
 
@@ -26,6 +30,31 @@ _DY_EPS = 1e-12
 def ode_rhs(u, r):
     """f(u) = -u + (3/2)·r·u² (blackhole.cpp:13-15)."""
     return -u + 1.5 * r * u * u
+
+
+class GradGuard(torch.autograd.Function):
+    """Identity whose cotangent is sanitised: NaN and ±inf become 0, then
+    it is clipped to ±1e3 (the JAX package's `grad_guard`). Near-wrap
+    steps are chaotic: reverse-mode products through u → 1/u → 1e9-scale
+    positions overflow float32 inside one step, and one poisoned lane
+    would NaN the whole summed parameter gradient. Guards between the
+    step's stages bound every backward product; forward values are
+    untouched."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = torch.nan_to_num(ct, nan=0.0, posinf=0.0, neginf=0.0)
+        return torch.clamp(ct, -1e3, 1e3)
+
+
+def grad_guard(x):
+    """`GradGuard` where autograd records `x`, else `x` itself: a render
+    outside autograd launches nothing extra."""
+    return GradGuard.apply(x) if x.requires_grad else x
 
 
 def micro_step(pos, direction, bh: BlackHoleParams):
@@ -53,27 +82,29 @@ def micro_step(pos, direction, bh: BlackHoleParams):
     safe_dy = torch.sqrt(torch.where(dead, torch.ones_like(y2), y2))
     rdy = 1.0 / safe_dy
     y_hat = y_axis * rdy[..., None]
-    up = torch.clamp(-u * dx * rdy, -1e15, 1e15)
+    up = grad_guard(torch.clamp(-u * dx * rdy, -1e15, 1e15))
     r = bh.radius
     fclip = lambda f: torch.clamp(f, -1e30, 1e30)
     f1 = fclip(ode_rhs(u, r))
     f2 = fclip(ode_rhs(u + up * dt / 2.0, r))
     f3 = fclip(ode_rhs(u + up * dt / 2.0 + f1 * dt * dt / 4.0, r))
-    u_new = u + up * dt + (f1 + f2 + f3) * dt * dt / 6.0
+    # a true division: on CUDA tensors PyTorch turns `x / 6.0` into
+    # x * (1/6), which rounds apart from the CPU's division
+    u_new = u + up * dt + (f1 + f2 + f3) * dt * dt / torch.full_like(u, 6.0)
     # u_new <= 0 "teleports" the path through the hole to the mirrored
     # polar position (blackhole.cpp:33-36); |1/u| is clamped at 1e9 so the
     # squared chord length stays finite in float32
     clip_region = torch.abs(u_new) < 1e-9
     u_den = torch.where(clip_region, torch.ones_like(u_new), u_new)
-    d_new = torch.where(
+    d_new = grad_guard(torch.where(
         clip_region,
         torch.where(u_new >= 0, torch.full_like(u_new, 1e9),
                     torch.full_like(u_new, -1e9)),
-        1.0 / u_den)
+        1.0 / u_den))
     next_pt = (bh.position
                + (d_new * torch.cos(dt))[..., None] * x_hat
                + (d_new * torch.sin(dt))[..., None] * y_hat)
-    chord = next_pt - pos
+    chord = grad_guard(next_pt - pos)
     c2 = torch.sum(chord * chord, dim=-1)
     zero_len = c2 <= 0
     chord_len = torch.sqrt(torch.where(zero_len, torch.ones_like(c2), c2))

@@ -164,7 +164,11 @@ def sample(table: BSDFTable, bsdf_id, wo, xi, xim, xic,
 
     # microfacet: Beckmann half-vector importance sampling
     a2 = _safe_alpha(m.alpha) ** 2
-    theta_h = torch.atan(torch.sqrt(-a2 * torch.log1p(-xim[..., 0])))
+    # a safe square root: ξ = 0 gives tan²θ_h = 0, whose d/dα is 0/0
+    tan2_h = -a2 * torch.log1p(-xim[..., 0])
+    pos_h = tan2_h > 0
+    theta_h = torch.atan(torch.where(
+        pos_h, torch.sqrt(torch.where(pos_h, tan2_h, 1.0)), 0.0))
     phi_h = 2.0 * PI * xim[..., 1]
     sin_h, cos_h = torch.sin(theta_h), torch.cos(theta_h)
     tan_h = torch.tan(theta_h)

@@ -7,7 +7,16 @@ lanes in lockstep, traces one batched shadow query per chunk of
 (light, sample) pairs and one batched bounce, and carries (L, β, alive)
 to the next vertex. Russian roulette continues with probability 0.7, is
 skipped at the first vertex, and its 1/0.7 weight is applied there too,
-as the reference does. Delta BSDFs pick up the next hit's emission.
+as the reference does. Delta BSDFs pick up the next hit's emission. A
+camera ray that misses takes the environment map's radiance along its
+original direction, when the scene has one.
+
+With `cfg.differentiable` every closest-hit query goes through
+`trace_diff` (the kernel's primal, the continuous payload re-derived under
+autograd); shadow queries and the hemisphere-direct trace, which yield
+only masks and material ids, go through the kernel outside autograd.
+Gradients reach the materials, the light radiance and the hole through
+the continuous factors; discrete decisions carry none.
 
 Random numbers come from the caller's `torch.Generator`, drawn in a fixed
 order per vertex: light samples, the roulette coin, the BSDF sample.
@@ -24,6 +33,7 @@ from rrt_tpu_torch.geometry import trace as tracer
 from rrt_tpu_torch.ops.trace_kernel import TraceTables
 from rrt_tpu_torch.render import bsdf as bsdflib
 from rrt_tpu_torch.render import lights as lightlib
+from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
 from rrt_tpu_torch.utils import math3d as m3
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
@@ -54,16 +64,20 @@ def _uniform(gen: torch.Generator, shape, like: torch.Tensor):
 
 
 def _trace(scene, bh, tab: TraceTables, rays, cfg: RenderConfig,
-           occlusion=False):
-    """One batched query; returns (Hit or hit bool, TraceWork)."""
-    if cfg.differentiable:
-        raise NotImplementedError("differentiable rendering: see ROADMAP")
+           occlusion=False, discrete=False):
+    """One batched query; returns (Hit or hit bool, TraceWork). Under
+    `cfg.differentiable` a closest hit is `trace_diff`'s, unless only its
+    `discrete` part (hit mask, material id) is used."""
     if occlusion:
         hit, st = tracer.occluded(scene, bh, rays, return_stats=True,
                                   tables=tab)
+    elif cfg.differentiable and not discrete:
+        hit, st = tracer.trace_diff(scene, bh, rays, tables=tab,
+                                    return_stats=True)
     else:
-        hit, st = tracer.trace(scene, bh, rays, return_stats=True,
-                               tables=tab)
+        with torch.no_grad():
+            hit, st = tracer.trace(scene, bh, rays, return_stats=True,
+                                   tables=tab)
     return hit, TraceWork(st, 1 if rays.min_t.numel() else 0)
 
 
@@ -91,7 +105,9 @@ def light_samples(scene: SceneData, hit: Hit, cfg: RenderConfig,
             else cfg.ns_area_light
         for _ in range(ns):
             xi = _uniform(gen, hit.t.shape + (2,), hit.p)
-            samples.append(lightlib.sample_light(scene.lights, li, hit.p, xi))
+            samples.append(lightlib.sample_light(
+                scene.lights, li, hit.p, xi, scene.env,
+                cfg.env_importance_sampling))
     return samples
 
 
@@ -161,7 +177,9 @@ def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
                 min_t=torch.zeros((num,) + shape, device=hit.p.device),
                 max_t=torch.full((num,) + shape, math.inf,
                                  device=hit.p.device))
-    h2, work = _trace(scene, bh, tab, rays, cfg)
+    # only h2.hit and h2.bsdf_id are used; the emission gather reads the
+    # live material table
+    h2, work = _trace(scene, bh, tab, rays, cfg, discrete=True)
     emit = bsdflib.emission(scene.bsdfs, h2.bsdf_id)
     f_val = bsdflib.evaluate(scene.bsdfs, hit.bsdf_id[None], wo[None], wi_l)
     contrib = emit * f_val * wi_l[..., 2:3]
@@ -183,7 +201,10 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
     flat batch of camera rays, traced through `tab` =
     `build_tables(scene, bh)`. Returns ((..., 3) radiance, TraceWork)."""
     hit, work = _trace(scene, bh, tab, rays, cfg)
-    L = torch.zeros_like(rays.d)     # no environment map: misses are black
+    L = torch.zeros_like(rays.d)
+    if scene.env is not None:          # along the ORIGINAL direction
+        L = torch.where(hit.hit[..., None], 0.0,
+                        envlib.sample_dir(scene.env, rays.d))
 
     if cfg.illum == Illum.NORMAL:
         # normal_shading(isect.n): the raw interpolated normal

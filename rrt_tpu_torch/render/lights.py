@@ -2,19 +2,21 @@
 `rrt_tpu/render/lights.py`).
 
 Each call samples one light row for a whole lane batch, as the reference's
-per-light loop does (part1_code.cpp:41-55). Uniforms come in as a tensor
-`xi` (..., 2) so that the caller decides where they come from.
+per-light loop does (part1_code.cpp:41-55); the environment light
+delegates to `scene.envmap`. Uniforms come in as a tensor `xi` (..., 2) so
+that the caller decides where they come from.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import (
     LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_ENV, LIGHT_HEMISPHERE, LIGHT_POINT,
-    LIGHT_SPOT, LightTable,
+    LIGHT_SPOT, EnvMap, LightTable,
 )
 
 PI = math.pi
@@ -28,9 +30,12 @@ class LightSample(NamedTuple):
 
 
 def sample_light(lights: LightTable, light_idx: int, p: torch.Tensor,
-                 xi: torch.Tensor) -> LightSample:
+                 xi: torch.Tensor, env: Optional[EnvMap] = None,
+                 env_importance: bool = True) -> LightSample:
     """sample_L of light row `light_idx` (a Python int) at shading points
-    p (..., 3), with uniforms xi (..., 2) in [0, 1)."""
+    p (..., 3), with uniforms xi (..., 2) in [0, 1). An environment row
+    reads the map `env`: importance-sampled, or with `env_importance`
+    False uniform over the sphere."""
     kind = lights.kind_host[light_idx]
     shape = p.shape[:-1]
     full = lambda v: torch.full(shape, v, dtype=p.dtype, device=p.device)
@@ -91,7 +96,21 @@ def sample_light(lights: LightTable, light_idx: int, p: torch.Tensor,
                            dist=torch.where(pos_ok, dist, 0.0), pdf=pdf)
 
     if kind == LIGHT_ENV:
-        raise NotImplementedError("envmap: see ROADMAP")
+        if env is None:
+            raise ValueError("an environment light row without an EnvMap")
+        if env_importance:
+            rad, wi, dist, pdf = envlib.sample_L(env, xi)
+        else:
+            # ENV_HEMI == 1 (environment_light.cpp:139-142): ξ₀ gives z,
+            # ξ₁ gives φ; pdf 1/4π, radiance looked up along wi
+            z = 2.0 * xi[..., 0] - 1.0
+            phi = 2.0 * PI * xi[..., 1]
+            s = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+            wi = torch.stack([s * torch.cos(phi), s * torch.sin(phi), z],
+                             dim=-1)
+            rad, dist, pdf = (envlib.sample_dir(env, wi), full(math.inf),
+                              full(0.25 / PI))
+        return LightSample(radiance=rad, wi=wi, dist=dist, pdf=pdf)
     raise ValueError(f"unknown light kind {kind}")
 
 

@@ -5,7 +5,8 @@ The numpy stage is the JAX package's, line for line: node transforms are
 baked into world-space triangle and sphere arrays, triangles are Morton
 ordered and padded to a multiple of 64 rows, spheres to 8 rows with the
 live count kept, materials become BSDFTable rows and light wrappers
-LightTable rows. The result is a dictionary of numpy arrays that
+LightTable rows, with an environment light's row last when there is one.
+The result is a dictionary of numpy arrays that
 `convert.scene_from_arrays` turns into tensors on the caller's device.
 The orbit camera is placed from the scene bbox as the reference does.
 """
@@ -23,8 +24,8 @@ from rrt_tpu_torch.scene import mesh as meshlib
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import (
     BSDF_DIFFUSE, BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET, BSDF_MIRROR,
-    BSDF_REFRACTION, LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_HEMISPHERE,
-    LIGHT_POINT, LIGHT_SPOT, SceneData,
+    BSDF_REFRACTION, LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_ENV,
+    LIGHT_HEMISPHERE, LIGHT_POINT, LIGHT_SPOT, EnvMap, SceneData,
 )
 
 # triangle rows are padded to a multiple of this, which is also the
@@ -126,9 +127,11 @@ def _light_table(rows, dtype) -> dict:
                 kind_host=tuple(int(r["kind"]) for r in rows))
 
 
-def _scene_arrays(info: collada.SceneInfo):
+def _scene_arrays(info: collada.SceneInfo, with_env: bool = False):
     """The numpy stage of the build: (arrays dict, camera info, camera
-    view direction, scene bbox lo, scene bbox hi)."""
+    view direction, scene bbox lo, scene bbox hi). `with_env` appends the
+    environment light's row, as the reference appends it to
+    scene->lights (pathtracer.cpp:107-109)."""
     dtype = np.float32
     materials = []
     tv0, tv1, tv2, tn0, tn1, tn2, tb = [], [], [], [], [], [], []
@@ -182,6 +185,12 @@ def _scene_arrays(info: collada.SceneInfo):
             tb.append(np.full(len(tris), bid, dtype=np.int32))
             bbox_min = np.minimum(bbox_min, verts.min(axis=0))
             bbox_max = np.maximum(bbox_max, verts.max(axis=0))
+
+    if with_env:
+        light_rows.append(dict(kind=LIGHT_ENV, radiance=np.zeros(3),
+                               position=np.zeros(3), direction=np.zeros(3),
+                               dim_x=np.zeros(3), dim_y=np.zeros(3),
+                               area=0.0))
 
     if tv0:
         tv0, tv1, tv2, tn0, tn1, tn2 = (np.concatenate(a) for a in
@@ -238,13 +247,17 @@ def _scene_arrays(info: collada.SceneInfo):
 
 def build_scene(info: collada.SceneInfo, device, screen_w: int = 800,
                 screen_h: int = 600, fov_mode: str = "reference",
-                ) -> Tuple[SceneData, Camera]:
+                env: Optional[EnvMap] = None) -> Tuple[SceneData, Camera]:
     """Build the flat SceneData on `device` and a camera placed like the
     reference. With fov_mode "reference" the camera is configured at
     800×600 and then resized, as the reference's headless path does;
-    "native" fits the FoV to the target resolution directly."""
-    arrays, cam_info, c_dir, bbox_min, bbox_max = _scene_arrays(info)
+    "native" fits the FoV to the target resolution directly. An
+    environment map `env` becomes the scene's last light."""
+    arrays, cam_info, c_dir, bbox_min, bbox_max = _scene_arrays(
+        info, with_env=env is not None)
     scene = scene_from_arrays(arrays, device)
+    if env is not None:
+        scene = scene.replace(env=env.to(device))
 
     # camera placement from the scene bbox (application.cpp:263-288)
     cam = Camera()
@@ -265,7 +278,8 @@ def build_scene(info: collada.SceneInfo, device, screen_w: int = 800,
 
 
 def load_scene(path: str, device, screen_w: int = 800, screen_h: int = 600,
-               fov_mode: str = "reference"):
-    """Parse a .dae and build the flat scene and camera on `device`."""
+               fov_mode: str = "reference", env: Optional[EnvMap] = None):
+    """Parse a .dae and build the flat scene and camera on `device`, lit
+    also by the environment map `env` when one is given."""
     return build_scene(collada.load(path), device, screen_w, screen_h,
-                       fov_mode=fov_mode)
+                       fov_mode=fov_mode, env=env)

@@ -108,6 +108,17 @@ class LightTable(_Tensors):
 
 
 @dataclasses.dataclass
+class EnvMap(_Tensors):
+    """Lat-long HDR environment light with its two-level CDF tables
+    (reference environment_light.cpp:21-49)."""
+
+    data: torch.Tensor       # (H, W, 3) radiance
+    pdf: torch.Tensor        # (H, W) pixel probabilities, summing to 1
+    cond_cdf: torch.Tensor   # (H, W) per-row conditional CDF
+    marg_cdf: torch.Tensor   # (H,) row marginal CDF
+
+
+@dataclasses.dataclass
 class BlackHoleParams(_Tensors):
     """Schwarzschild hole: `radius` is both horizon and Schwarzschild
     radius, as in the reference."""
@@ -135,6 +146,7 @@ class SceneData(_Tensors):
     sph_bsdf: torch.Tensor    # (S,) int32
     bsdfs: BSDFTable
     lights: LightTable
+    env: Optional[EnvMap] = None               # the `-e` environment light
     cluster_lo: Optional[torch.Tensor] = None  # (K, 3)
     cluster_hi: Optional[torch.Tensor] = None  # (K, 3)
     cluster_size: int = 64

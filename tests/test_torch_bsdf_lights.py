@@ -138,9 +138,3 @@ def test_sample_light_matches_jax(idx):
                                    atol=ATOL, err_msg=f)
     assert tlights.is_delta_light(tl, idx) == jlights.is_delta_light(jl, idx)
 
-
-def test_env_light_not_ported():
-    _, tl = _light_tables()
-    env = tl.replace(kind_host=(tt.LIGHT_ENV,))
-    with pytest.raises(NotImplementedError, match="envmap"):
-        tlights.sample_light(env, 0, torch.zeros(4, 3), torch.zeros(4, 2))

@@ -3,8 +3,9 @@ trace kernel (Cornell box, a 3-part scene and the 14-part BVH-scale
 scene; ragged lane counts from spread origins and from one point, masked
 lanes, a scene whose box tables do not fit in shared memory, launches
 back to back, each in the default build and in the builds that fix its
-traversal lane by lane and cooperative), the toolchain probe and the
-eight cost micro-probes.
+traversal lane by lane and cooperative), the differentiable trace on the
+kernel's primal against the CPU's, the toolchain probe and the eight cost
+micro-probes.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -15,13 +16,14 @@ import pytest
 import torch
 
 from rrt_tpu_torch.convert import black_hole_from_arrays
+from rrt_tpu_torch.geometry.trace import trace_diff
 from rrt_tpu_torch.ops import probe as tprobe
 from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
 from rrt_tpu_torch.scene.build import build_scene, load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense, uv_sphere_box
 from rrt_tpu_torch.tools import r5prim, trace_modes
-from rrt_tpu_torch.types import Rays
+from rrt_tpu_torch.types import BlackHoleParams, Rays
 
 N_SEG = 63
 # the default build of the trace kernel, and the builds that fix its
@@ -242,6 +244,50 @@ def test_wrapper_rejects_bad_inputs(device):
     cpu_tab = tk.build_tables(scene.to("cpu"), bh.to("cpu"))
     with pytest.raises(ValueError, match="params"):
         tk.trace_rays(cpu_tab, rays.o, rays.d, rays.min_t, rays.max_t, **kw)
+
+
+@pytest.mark.cuda
+def test_trace_diff_and_grads_match_cpu(device):
+    """trace_diff of 4,096 seeded camera rays on the card (the kernel's
+    primal, the replay on CUDA tensors) against the CPU (the plain
+    primal): on calm lanes the same hits and prims, >= 99.5% of hit points
+    within 1e-4 (the rule of tests/test_diff.py: CUDA's cos and sin of Δθ
+    may differ from the CPU's by an ulp), and the gradients of a weighted sum of the hit points
+    with respect to the hole to rtol 5e-3 (the float32 conditioning of 63
+    chords' Jacobians)."""
+    scene, cam = load_scene(CBOX_SPHERES, device, 64, 64, fov_mode="native")
+    bh = black_hole_from_arrays((0, 1, 0), 0.1, 0.1, device)
+    xy = np.random.default_rng(17).uniform(0.2, 0.8, (4096, 2))
+    rays = cam.generate_rays(torch.tensor(xy, dtype=torch.float32,
+                                          device=device))
+    calm = ~chaotic_lanes(rays.o, rays.d, bh, N_SEG)
+    w = torch.tensor(np.random.default_rng(18).normal(size=(4096, 3)),
+                     dtype=torch.float32, device=device) * calm[:, None]
+    out = []
+    for dev in (device, torch.device("cpu")):
+        leaves = [x.detach().to(dev).clone().requires_grad_(True)
+                  for x in (bh.position, bh.radius, bh.delta_theta)]
+        hole = BlackHoleParams(*leaves)
+        sc = scene.to(dev)
+        before = tk.LAUNCHES
+        h, st = trace_diff(sc, hole, rays.to(dev),
+                           tables=tk.build_tables(sc, hole),
+                           return_stats=True)
+        assert tk.LAUNCHES == before + (dev.type == "cuda")
+        loss = torch.sum(torch.where(h.hit[:, None], h.p, 0.0) * w.to(dev))
+        out.append((h, st, torch.autograd.grad(loss, leaves)))
+    (hk, stk, gk), (hr, str_, gr) = out
+    c = calm.cpu()
+    assert torch.equal(hk.hit.cpu()[c], hr.hit[c])
+    assert torch.equal(hk.prim_id.cpu()[c], hr.prim_id[c])
+    m = c & hr.hit
+    assert m.sum() > 50
+    err = (hk.p.detach().cpu()[m] - hr.p.detach()[m]).abs().amax(-1)
+    assert (err < 1e-4).float().mean() >= 0.995, err.max()
+    assert (stk > 0).all() and (str_ > 0).all()
+    for a, b in zip(gk, gr):
+        torch.testing.assert_close(a.cpu(), b, rtol=5e-3,
+                                   atol=5e-3 * b.abs().max().item())
 
 
 @pytest.mark.cuda

@@ -140,7 +140,7 @@ def test_cli_writes_png(tmp_path):
     assert r.samples_done == 1
 
 
-@pytest.mark.parametrize("flag", [["-e", "x.exr"], ["-p", "0", "0", "4", "4"],
+@pytest.mark.parametrize("flag", [["-p", "0", "0", "4", "4"],
                                   ["--checkpoint", "c.npz"], ["--serve"],
                                   ["--dump-rays", "r"]])
 def test_cli_refuses_unported_flags(flag, capsys):
