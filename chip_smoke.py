@@ -60,13 +60,33 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    temporary directory: launches equal to trace calls, a finite image
    brighter than the same render without `-e`, probability_debug.png
    written there; its wall and a profile of `sample_L` and `sample_dir`;
+4f. the render lifecycle on the main path (256×256, 16 spp, -l 4, -m 5,
+   one sample a pass): a render checkpointed every 4 samples, stopped
+   after 8 and resumed equals the uninterrupted render bit for bit; a
+   NORMAL-mode `-p 64 32 96 80` cell equals the crop of the full frame
+   (walls of both); a preview every 4 samples;
+4g. `--serve 0` through the CLI at 1024×1024, 16 spp: a second thread
+   reads the port from the CLI's output, GETs /status.json, /accel.png and
+   /preview.png (200 each) and POSTs {"spp_cap": 4}, in a second run
+   {"action": "stop"}: both renders end early, cancelled; the accel walk
+   steps left, right and up on cbox_dense over HTTP;
+4h. `--dump-rays` and `--dump-accel` through the CLI, then each dump on
+   the Cornell box (curved and `--flat`) and on cbox_dense at 256×256
+   with its walls, trace launches and peak memory; the ray log from the
+   kernel equals the plain traversal's on calm lanes, ≥ 99.5% overall;
+4i. Kerr, BASELINE config 5 at full width (1024×1024, spin 0.9, disk
+   [3, 12], 600 RK4 steps, one batch of 1 << 20 lanes, 1 spp where config
+   5 has 16): the structure checks of tests/test_kerr.py, wall, rays/s,
+   RK4 steps/s, peak memory, launches per RK4 step and the busy share;
+   a 32×32, 300-step render on the card against the CPU (≥ 99% of lanes
+   agree on the disk and escape masks, radiance to rtol 1e-3 there);
 5. the bench (`rrt_tpu_torch.bench`, in-process): probe, build, the
    primary and the BVH-scale cell; its JSON line is printed;
 6. the cost-probe tool's path (`rrt_tpu_torch.tools.r5prim`): every probe
    timed at two iteration counts, beside its plain version;
 7. a JSON line of the kernels, then the ok line.
 
-Each of the paths (4, 4b, 4c, 4e, 5, 6) is driven with the kernels'
+Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 5, 6) is driven with the kernels'
 launch counts set to 0 just before it and read just after: every kernel
 of the path must have launched in it.
 
@@ -180,6 +200,407 @@ def event_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _peak_mib(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 20
+
+
+def _timed_call(dev, fn):
+    """(seconds, result, peak MiB) of fn, host clock ending in a device
+    sync, with the peak device memory counted from its start."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0, out, _peak_mib(dev)
+
+
+def lifecycle_phase(dev, card, tmp, size=256, spp=16, cell=(64, 32, 96, 80)):
+    """The render lifecycle on the main path (256×256, 16 spp, -l 4, -m 5,
+    one sample a pass): an uninterrupted render twice, a render
+    checkpointed every 4 samples and stopped after 8, its resume (equal to
+    the uninterrupted render bit for bit), a NORMAL-mode cell against the
+    crop of the full frame, and a preview every 4 samples."""
+    import torch
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.scene.build import load_scene
+    from rrt_tpu_torch.scenes import CBOX_SPHERES
+    from rrt_tpu_torch.utils.config import Illum, RenderConfig
+    cfg = RenderConfig(width=size, height=size, ns_aa=spp, ns_area_light=4,
+                       max_ray_depth=5, max_pass_lanes=size * size)
+    scene, cam = load_scene(CBOX_SPHERES, dev, size, size)
+    out = {}
+    tk.LAUNCHES = 0
+    r1 = Renderer(scene, cam, cfg, dev)
+    out["wall"], (full, full_count), out["peak_mib"] = _timed_call(
+        dev, r1.render)
+    out["launches"] = tk.LAUNCHES
+    if out["launches"] != r1.last_trace_calls or out["launches"] == 0:
+        raise AssertionError(f"lifecycle: {out['launches']} launches for "
+                             f"{r1.last_trace_calls} trace calls")
+    # a second uninterrupted render: the first pays its shapes' first use
+    out["warm_wall"], (again, _), _ = _timed_call(
+        dev, Renderer(scene, cam, cfg, dev).render)
+    out["repeat_equal"] = bool(np.array_equal(again, full))
+    ckpt = os.path.join(tmp, "state.npz")
+    r2 = Renderer(scene, cam, cfg, dev)
+    out["stopped_wall"], _, _ = _timed_call(dev, lambda: r2.render(
+        checkpoint_path=ckpt, checkpoint_every=4, stop_after=spp // 2))
+    if not (r2.cancelled and r2.samples_done == spp // 2):
+        raise AssertionError(f"lifecycle: stop_after ended at "
+                             f"{r2.samples_done}, cancelled {r2.cancelled}")
+    out["checkpoint_bytes"] = os.path.getsize(ckpt)
+    acc = tuple(torch.as_tensor(a, device=dev) for a in r2.last_accumulators)
+    saves = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r2.save_checkpoint(os.path.join(tmp, "again.npz"), acc, spp // 2,
+                           (0, 0, size, size))
+        saves.append(time.perf_counter() - t0)
+    out["checkpoint_s"] = min(saves)
+    r3 = Renderer(scene, cam, cfg, dev)
+    out["resume_wall"], (resumed, resumed_count), _ = _timed_call(
+        dev, lambda: r3.render(checkpoint_path=ckpt, resume=True))
+    out["resume_equal"] = bool(
+        np.array_equal(resumed, full) and np.array_equal(resumed_count,
+                                                         full_count)
+        and all(np.array_equal(a, b) for a, b in zip(r3.last_accumulators,
+                                                      r1.last_accumulators)))
+    out["resume_overhead"] = (out["stopped_wall"] + out["resume_wall"]
+                              - out["warm_wall"])
+    print(f"[smoke] lifecycle {size}x{size} {spp}spp -l 4 -m 5, one sample a "
+          f"pass: uninterrupted {out['wall']:.3f} s ({out['launches']} "
+          f"kernel launches = trace calls, peak {out['peak_mib']:.1f} MiB), "
+          f"again {out['warm_wall']:.3f} s and equal {out['repeat_equal']}; "
+          f"checkpointed every 4 and stopped at {spp // 2}: "
+          f"{out['stopped_wall']:.3f} s, resumed: {out['resume_wall']:.3f} "
+          f"s, equal to the uninterrupted render bit for bit "
+          f"{out['resume_equal']}, overhead against the second render "
+          f"{out['resume_overhead']:.3f} s; checkpoint "
+          f"{out['checkpoint_bytes']} bytes, saved in "
+          f"{out['checkpoint_s'] * 1e3:.2f} ms ({card})")
+    if not out["resume_equal"]:
+        raise AssertionError("lifecycle: the resumed render differs from "
+                             "the uninterrupted one (repeat equal "
+                             f"{out['repeat_equal']})")
+    ncfg = cfg.replace(illum=Illum.NORMAL, ns_aa=1)
+    rn = Renderer(scene, cam, ncfg, dev)
+    out["normal_wall"], (nfull, _), _ = _timed_call(dev, rn.render)
+    x, y, dx, dy = cell
+    out["cell_wall"], ncell, _ = _timed_call(
+        dev, lambda: rn.render_cell(x, y, dx, dy))
+    if not np.array_equal(ncell, nfull[y:y + dy, x:x + dx]):
+        raise AssertionError("lifecycle: the cell differs from the crop")
+    print(f"[smoke] NORMAL -p {x} {y} {dx} {dy}: equal to the crop of the "
+          f"full frame; cell {out['cell_wall']:.4f} s, full frame "
+          f"{out['normal_wall']:.4f} s ({card})")
+    prev = os.path.join(tmp, "prev.png")
+    r4 = Renderer(scene, cam, cfg, dev)
+    written = []
+    real = r4._write_preview
+    r4._write_preview = lambda *a: written.append(done[-1]) or real(*a)
+    done = []
+    out["preview_wall"], _, _ = _timed_call(dev, lambda: r4.render(
+        preview_path=prev, preview_every=4,
+        progress=lambda s_, total: done.append(s_)))
+    from rrt_tpu_torch.io.png import read_png
+    if written != list(range(4, spp, 4)) \
+            or read_png(prev).shape != (size, size, 4):
+        raise AssertionError(f"lifecycle: {len(written)} previews")
+    print(f"[smoke] preview every 4 samples: {len(written)} written, render "
+          f"{out['preview_wall']:.3f} s ({card})")
+    return out
+
+
+class _Tee:
+    """A stdout that also keeps what is written, and signals once a line
+    holds `needle`."""
+
+    def __init__(self, stream, needle):
+        import threading
+        self.stream, self.needle = stream, needle
+        self.text = ""
+        self.seen = threading.Event()
+
+    def write(self, s):
+        self.text += s
+        if self.needle in self.text:
+            self.seen.set()
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def serve_phase(dev, card, tmp, size=1024):
+    """`--serve 0` through the CLI, twice: a second thread reads the
+    server's port from the CLI's output, GETs /status.json, /accel.png and
+    (once written) /preview.png, then POSTs {"spp_cap": 4} in the first
+    run and {"action": "stop"} in the second; each render must end early
+    and cancelled. Then the accel walk on cbox_dense over HTTP."""
+    import contextlib
+    import re
+    import threading
+    import urllib.error
+    import urllib.request
+    from rrt_tpu_torch import cli
+    from rrt_tpu_torch.scene.build import build_scene
+    from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense
+    from rrt_tpu_torch.utils.accel_walk import AccelWalk
+    from rrt_tpu_torch.utils.serve import PreviewServer
+
+    def get(base, path):
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.status, r.read()
+
+    def post(base, body):
+        req = urllib.request.Request(base + "/control",
+                                     data=json.dumps(body).encode(),
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+
+    out = {}
+    for name, body in (("spp_cap", {"spp_cap": 4}),
+                       ("stop", {"action": "stop"})):
+        tee = _Tee(sys.stdout, "Live preview: http://localhost:")
+        codes, errors = {}, []
+
+        def client():
+            try:
+                if not tee.seen.wait(300):
+                    raise TimeoutError("the CLI printed no server address")
+                port = re.search(r"localhost:(\d+)/", tee.text).group(1)
+                base = f"http://127.0.0.1:{port}"
+                for path in ("/status.json", "/accel.png"):
+                    codes[path] = get(base, path)[0]
+                if name == "spp_cap":
+                    for _ in range(3000):
+                        try:
+                            codes["/preview.png"] = get(base,
+                                                        "/preview.png")[0]
+                            break
+                        except urllib.error.HTTPError:
+                            time.sleep(0.01)
+                codes["POST /control"] = post(base, body)[0]
+            except Exception as e:      # reported and failed below
+                errors.append(repr(e))
+
+        thread = threading.Thread(target=client)
+        thread.start()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rend = cli.main(["-f", os.path.join(tmp, f"serve_{name}.png"),
+                             "-r", str(size), str(size), "-s", "16", "-l",
+                             "4", "-m", "5", "--serve", "0", "--device",
+                             dev.type, CBOX_SPHERES])
+        wall = time.perf_counter() - t0
+        thread.join(60)
+        if thread.is_alive() or errors:
+            raise AssertionError(f"serve {name}: client {errors}")
+        want = {"/status.json", "/accel.png", "POST /control"} | (
+            {"/preview.png"} if name == "spp_cap" else set())
+        if set(codes) != want or set(codes.values()) != {200}:
+            raise AssertionError(f"serve {name}: answers {codes}")
+        lo = 4 if name == "spp_cap" else 1
+        if not (rend.cancelled and lo <= rend.samples_done < 16):
+            raise AssertionError(f"serve {name}: ended at "
+                                 f"{rend.samples_done} samples, cancelled "
+                                 f"{rend.cancelled}")
+        out[name] = dict(samples=rend.samples_done, wall=wall)
+        print(f"[smoke] --serve 0 {size}x{size} 16spp, POST {body}: answers "
+              f"{codes}, render cancelled after {rend.samples_done} "
+              f"samples/pixel, wall {wall:.2f} s ({card})")
+    dense, dcam = build_scene(cbox_dense(), dev, 256, 256)
+    srv = PreviewServer(os.path.join(tmp, "none.png"), 0,
+                        accel=AccelWalk(dense, dcam)).start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        steps = []
+        for key in ("left", "left", "right", "up"):
+            _, resp = post(base, {"accel": key})
+            st = json.loads(get(base, "/status.json")[1])["accel"]
+            steps.append((key, resp["moved"], st["level"], st["index"]))
+        code, png = get(base, "/accel.png")
+    finally:
+        srv.stop()
+    if not all(moved for _, moved, _, _ in steps) or code != 200 \
+            or steps[2][3] != 1 or steps[3][2] != "part":
+        raise AssertionError(f"accel walk on cbox_dense: {steps}, {code}")
+    print(f"[smoke] accel walk on cbox_dense over HTTP: {steps}, "
+          f"/accel.png {len(png)} bytes")
+    return out
+
+
+def dumps_phase(dev, card, tmp, size=256):
+    """--dump-rays and --dump-accel: the CLI with both flags on the
+    Cornell box, then each dump alone on the Cornell box (curved and flat)
+    and on cbox_dense, timed with its trace launches and peak memory; the
+    ray log from the kernel against the same log from the plain traversal
+    on the card's tensors."""
+    import torch
+    from rrt_tpu_torch import cli
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
+    from rrt_tpu_torch.render.renderer import make_black_hole
+    from rrt_tpu_torch.scene.build import build_scene, load_scene
+    from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense
+    from rrt_tpu_torch.utils import accel_viz, ray_debug
+    from rrt_tpu_torch.utils.config import BlackHoleConfig, RenderConfig
+
+    base = os.path.join(tmp, "cli")
+    tk.LAUNCHES = 0
+    cli_wall, rend, _ = _timed_call(dev, lambda: cli.main([
+        "-f", base + ".png", "-r", str(size), str(size), "-s", "1",
+        "--illum", "0", "--dump-rays", base, "--dump-accel", base,
+        "--device", dev.type, CBOX_SPHERES]))
+    cli_launches = tk.LAUNCHES
+    if cli_launches != rend.last_trace_calls + 1:
+        raise AssertionError(f"dumps: {cli_launches} launches through the "
+                             f"CLI for {rend.last_trace_calls} + 1")
+    for suffix in ("_accel.json", "_accel.png", "_raylog.npz",
+                   "_raylog_hit.png", "_raylog_cost.png", "_raylog_seg.png"):
+        if not os.path.getsize(base + suffix):
+            raise AssertionError(f"dumps: empty {suffix}")
+    print(f"[smoke] CLI --dump-rays --dump-accel {size}x{size}: wall "
+          f"{cli_wall:.2f} s, {cli_launches} kernel launches ({card})")
+    cfg = RenderConfig(width=size, height=size)
+    rows = []
+    for name, info_or_path, curved in (
+            ("cbox curved", CBOX_SPHERES, True),
+            ("cbox flat", CBOX_SPHERES, False),
+            ("dense curved", None, True)):
+        if info_or_path is None:
+            scene, cam = build_scene(cbox_dense(), dev, size, size)
+        else:
+            scene, cam = load_scene(info_or_path, dev, size, size)
+        bh = make_black_hole(cfg.replace(black_hole=BlackHoleConfig(
+            enabled=curved)), dev)
+        stem = os.path.join(tmp, name.replace(" ", "_"))
+        tk.LAUNCHES = 0
+        rays_wall, log, rays_mib = _timed_call(
+            dev, lambda: ray_debug.dump_ray_log(scene, bh, cam, size, size,
+                                                stem))
+        launches = tk.LAUNCHES
+        accel_wall, counts, accel_mib = _timed_call(
+            dev, lambda: accel_viz.dump_accel(scene, cam, size, size, stem))
+        # the same log with the plain traversal on the card's tensors
+        kernel = tk.trace_rays
+        tk.trace_rays = tk.trace_rays_reference
+        try:
+            tk.LAUNCHES = 0
+            plain = ray_debug.ray_log(scene, bh, cam, size, size)
+            if tk.LAUNCHES:
+                raise AssertionError("the plain ray log launched the kernel")
+        finally:
+            tk.trace_rays = kernel
+        rays = accel_viz.pixel_rays(cam, size, size, dev)
+        calm = (~chaotic_lanes(rays.o, rays.d, bh, 63) if curved
+                else torch.ones(size * size, dtype=torch.bool, device=dev))
+        calm = calm.cpu().numpy().reshape(size, size)
+        agree = {}
+        for key in ("outcome", "win_seg", "prim", "marched", "clusters"):
+            eq = log[key] == plain[key]
+            if not eq[calm].all():
+                raise AssertionError(f"dumps {name}: calm lanes differ in "
+                                     f"{key}")
+            agree[key] = float(eq.mean())
+        if min(agree.values()) < 0.995:
+            raise AssertionError(f"dumps {name}: agreement {agree}")
+        if launches != 1:
+            raise AssertionError(f"dumps {name}: {launches} launches")
+        outcomes = np.bincount(log["outcome"].ravel(), minlength=3).tolist()
+        rows.append(dict(name=name, rays_wall=rays_wall, rays_mib=rays_mib,
+                         launches=launches, accel_wall=accel_wall,
+                         accel_mib=accel_mib, agree=agree,
+                         calm=float(calm.mean()), outcomes=outcomes,
+                         clusters=int(scene.cluster_lo.shape[0])))
+        print(f"[smoke] dumps {name} {size}x{size}: ray log {rays_wall:.3f} "
+              f"s ({launches} kernel launch, peak {rays_mib:.1f} MiB), accel "
+              f"dump {accel_wall:.3f} s (peak {accel_mib:.1f} MiB, "
+              f"{rows[-1]['clusters']} clusters, touched mean "
+              f"{counts.mean():.1f}); outcomes miss/hit/absorbed "
+              f"{outcomes}; kernel vs plain: calm "
+              f"{rows[-1]['calm']:.3f} equal, all {agree} ({card})")
+    return dict(cli_wall=cli_wall, cli_launches=cli_launches, rows=rows,
+                launches=cli_launches + sum(r["launches"] for r in rows))
+
+
+def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
+    """BASELINE config 5 at full width on the card (1024×1024, spin 0.9,
+    mass 1, disk [3, 12], 600 RK4 steps, one batch of 1 << 20 lanes; 1 spp
+    where config 5 has 16), with the structure checks of
+    tests/test_kerr.py; a 32×32, 300-step render on the card against the
+    CPU; launches per RK4 step and the device's busy share from profiles
+    of 10- and 30-step renders."""
+    import torch
+    from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
+    from rrt_tpu_torch.render import kerr_scene as K
+    from rrt_tpu_torch.utils.profile import profile_call
+
+    def hole(d):
+        return (kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, d),
+                disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, d))
+    bh, disk = hole(dev)
+    K.render_image(64, 64, bh, disk, n_steps=4, device=dev)     # warm-up
+    wall, img, peak = _timed_call(dev, lambda: K.render_image(
+        size, size, bh, disk, n_steps=n_steps, batch=1 << 20, device=dev))
+    h, w = img.shape[:2]
+    c = img[h // 2 - 2:h // 2 + 2, w // 2 - 2:w // 2 + 2]
+    left, right = img[:, :w // 2].sum(), img[:, w // 2:].sum()
+    asym = abs(left - right) / max(left, right)
+    corners = [img[0, 0].sum(), img[0, -1].sum(), img[-1, 0].sum(),
+               img[-1, -1].sum()]
+    checks = {"finite": bool(np.isfinite(img).all()),
+              "shadow": bool(c.max() < 1e-3), "disk": bool(img.max() > 0.5),
+              "corners": bool(min(corners) > 0.0), "asymmetry": bool(
+                  asym > 0.2)}
+    n = size * size
+    prof = {}
+    for steps in (10, 30):
+        prof[steps] = profile_call(lambda: K.render_image(
+            size, size, bh, disk, n_steps=steps, batch=1 << 20, device=dev),
+            device=dev)
+    per_step = (prof[30].launches - prof[10].launches) / 20
+    busy = prof[30].device_ms / (1e3 * prof[30].wall)
+    print(f"[smoke] Kerr {size}x{size} 1spp {n_steps} RK4 steps, spin 0.9, "
+          f"disk [3, 12]: wall {wall:.2f} s, {n / wall:.4g} rays/s, "
+          f"{n * n_steps / wall:.4g} RK4 steps/s, peak {peak:.1f} MiB; "
+          f"checks {checks} (centre max {c.max():.3g}, max "
+          f"{img.max():.3g}, corners {[round(float(x), 4) for x in corners]}"
+          f", asymmetry {asym:.3f}); {per_step:.1f} launches a step, "
+          f"30-step profile: wall {prof[30].wall:.3f} s, device "
+          f"{prof[30].device_ms:.1f} ms ({busy:.1%} busy) ({card})")
+    print(f"[smoke] Kerr 30-step profile: {prof[30].report()}")
+    if not all(checks.values()):
+        raise AssertionError(f"Kerr structure checks {checks}")
+    # the card against the CPU at 32x32, 300 steps
+    res = []
+    for d in (dev, torch.device("cpu")):
+        b, dk = hole(d)
+        o, dd = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                               (0.0, 1.0, 0.0), 30.0, small, small,
+                               device=d)
+        st, _, hit = K.trace_disk(o, dd, b, dk, 300)
+        res.append((hit.cpu().numpy(), (st.escaped & ~hit).cpu().numpy(),
+                    K.render_rays(o, dd, b, dk, n_steps=300).cpu().numpy()))
+    (hc, ec, rc), (hp, ep, rp) = res
+    agree = (hc == hp) & (ec == ep)
+    close = bool(np.allclose(rc[agree], rp[agree], rtol=1e-3, atol=1e-6))
+    print(f"[smoke] Kerr {small}x{small} 300 steps, card vs CPU: disk and "
+          f"escape masks agree on {agree.mean():.4f} of lanes, radiance "
+          f"within rtol 1e-3 there {close}")
+    if agree.mean() < 0.99 or not close:
+        raise AssertionError("Kerr: card and CPU disagree")
+    return dict(wall=wall, rays_per_s=n / wall,
+                steps_per_s=n * n_steps / wall, peak_mib=peak,
+                launches_per_step=per_step, busy=busy,
+                agree=float(agree.mean()))
 
 
 def main(argv=None):
@@ -713,6 +1134,13 @@ def main(argv=None):
         f"{name} " + ", ".join(f"{t:.3f}" for t in ts) + " ms"
         for name, ts in sl_times.items()) + f" ({card})")
 
+    # ---- 4f-4i. the render lifecycle, --serve, the dumps and Kerr
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        life = lifecycle_phase(dev, card, tmp)
+        served = serve_phase(dev, card, tmp)
+        dumps = dumps_phase(dev, card, tmp)
+    kerr_out = kerr_phase(dev, card)
+
     # ---- 5. the bench, in-process: the probe kernel and the trace kernel
     tk.LAUNCHES, tprobe.LAUNCHES = 0, 0
     bench_out, diag = bench.run(dev)
@@ -735,6 +1163,9 @@ def main(argv=None):
         print(f"[smoke] r5prim {r5prim.format_row(row, card, clock)}")
     if min(r5_launches.values()) == 0:
         raise AssertionError(f"r5prim tool launches {r5_launches}")
+
+    print(f"[smoke] phases 4f-4i: " + json.dumps(dict(
+        lifecycle=life, serve=served, dumps=dumps, kerr=kerr_out)))
 
     # ---- 7. result lines
     ms, plain_ms = times["closest-hit"]
@@ -779,6 +1210,9 @@ def main(argv=None):
         "diff_launches": diff_launches,
         "env_launches": env_launches,
         "config4_launches": radius_launches + albedo_launches,
+        "lifecycle_launches": life["launches"],
+        "dump_launches": dumps["launches"],
+        "dump_rays_launches": [r_["launches"] for r_ in dumps["rows"]],
     }, {
         "name": "probe",
         "route": "cuda",

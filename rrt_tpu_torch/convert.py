@@ -4,7 +4,8 @@
 flax dataclasses, whose leaves `np.asarray` accepts) into a nested dict of
 numpy arrays; `scene_from_arrays` builds the port's `SceneData` from such a
 dict on an explicit device. Tests feed the JAX package's scene through it,
-so that the two packages compute on identical data.
+so that the two packages compute on identical data; the Kerr hole and its
+disk cross the same way (`kerr_params_from_arrays`, `disk_from_arrays`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from rrt_tpu_torch.physics.kerr import KerrParams
+from rrt_tpu_torch.render.kerr_scene import DiskParams
 from rrt_tpu_torch.types import (BSDFTable, BlackHoleParams, EnvMap,
                                  LightTable, SceneData)
 
@@ -80,3 +83,23 @@ def black_hole_from_arrays(position, radius, delta_theta, device,
                            delta_theta=f32(delta_theta).reshape(()),
                            enabled=bool(enabled))
 
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def kerr_params_from_arrays(position, mass, spin, device):
+    """`physics.kerr.KerrParams` on `device` from plain numbers or
+    arrays."""
+    return KerrParams(position=_f32(position, device).reshape(3),
+                      mass=_f32(mass, device).reshape(()),
+                      spin=_f32(spin, device).reshape(()))
+
+
+def disk_from_arrays(r_in, r_out, emission, q, beaming, device):
+    """`render.kerr_scene.DiskParams` on `device` from plain numbers or
+    arrays."""
+    return DiskParams(r_in=_f32(r_in, device).reshape(()),
+                      r_out=_f32(r_out, device).reshape(()),
+                      emission=_f32(emission, device).reshape(3),
+                      q=_f32(q, device).reshape(()), beaming=bool(beaming))

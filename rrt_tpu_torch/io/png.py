@@ -21,6 +21,12 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
 
 def write_png(path: str, rgba: np.ndarray):
     """Write an (H, W, 4) uint8 array as a PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(rgba))
+
+
+def encode_png(rgba: np.ndarray) -> bytes:
+    """The PNG file's bytes of an (H, W, 4) (or (H, W, 3)) uint8 array."""
     rgba = np.ascontiguousarray(rgba, dtype=np.uint8)
     h, w = rgba.shape[:2]
     if rgba.shape[2] == 3:
@@ -32,8 +38,7 @@ def write_png(path: str, rgba: np.ndarray):
     out += _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
     out += _chunk(b"IDAT", zlib.compress(raw, 6))
     out += _chunk(b"IEND", b"")
-    with open(path, "wb") as f:
-        f.write(out)
+    return out
 
 
 def read_png(path: str) -> np.ndarray:

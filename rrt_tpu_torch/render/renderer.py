@@ -10,12 +10,27 @@ batch boundary; a frozen pixel's lanes end at once.
 
 Every pass draws its random numbers from its own `torch.Generator`,
 seeded from (cfg.seed, first sample index of the pass, band index), so a
-render is reproducible on one device. The port renders the whole frame
-as one band (index 0).
+render is reproducible on one device. The port renders each region as one
+band (index 0).
+
+The render lifecycle (the reference's `stop()`/`continueRaytracing`,
+pathtracer.cpp:180-202):
+  * `region=` renders a cell (`-p x y dx dy`, pathtracer.cpp:583-609):
+    camera rays are made for the cell only, so the wall scales with its
+    area;
+  * `checkpoint_path=` saves the accumulators and the pass index; a
+    render resumed from it equals the uninterrupted render bit for bit,
+    since a pass's generator depends only on (seed, pass index);
+  * `preview_path=` writes a progressive PNG between passes (the viewer's
+    `update_screen` blit, pathtracer.cpp:156-178);
+  * `stop()`, `stop_after=`, a `control` mapping (`--serve`'s POST
+    /control) and Ctrl-C end the render between passes, saving the
+    checkpoint.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -49,8 +64,8 @@ def pass_generator(seed: int, sample_idx: int, band: int, device
 
 
 class Renderer:
-    """Progressive whole-frame renderer with adaptive sampling, on the
-    scene's device."""
+    """Progressive renderer of a frame or a cell, with adaptive sampling,
+    checkpoints, previews and cancellation, on the scene's device."""
 
     def __init__(self, scene: SceneData, camera: Camera, cfg: RenderConfig,
                  device):
@@ -72,6 +87,8 @@ class Renderer:
         self.last_trace_tests = None
         self.last_trace_calls = 0
         self.samples_done = 0
+        self.cancelled = False
+        self._stop = False
 
     def samples_per_pass(self, n: int) -> int:
         cfg = self.cfg
@@ -81,13 +98,20 @@ class Renderer:
                 k -= 1
         return k
 
-    def camera_rays(self, jitter, gen, k: int):
-        """The k·W·H camera rays of one pass, pixel (x + jitter) / size,
-        sample-major; a jitter of one row is shared by every lane."""
+    def stop(self):
+        """Ask the render to end cleanly at the next pass boundary (the
+        reference's `stop()`, pathtracer.cpp:180-202)."""
+        self._stop = True
+
+    def camera_rays(self, jitter, gen, k: int, region=None):
+        """The k·rw·rh camera rays of one pass over the window region =
+        (x0, y0, rw, rh), the whole frame by default: pixel (x + jitter) /
+        size, sample-major; a jitter of one row is shared by every lane."""
         cfg, dev = self.cfg, self.device
+        x0, y0, rw, rh = region or (0, 0, cfg.width, cfg.height)
         ys, xs = torch.meshgrid(
-            torch.arange(cfg.height, dtype=torch.float32, device=dev),
-            torch.arange(cfg.width, dtype=torch.float32, device=dev),
+            y0 + torch.arange(rh, dtype=torch.float32, device=dev),
+            x0 + torch.arange(rw, dtype=torch.float32, device=dev),
             indexing="ij")
         px = torch.stack([xs, ys], dim=-1).reshape(-1, 2).repeat(k, 1)
         m = px.shape[0]
@@ -101,18 +125,19 @@ class Renderer:
             return self.camera.generate_rays_thin_lens(xy, rnd_r, rnd_th)
         return self.camera.generate_rays(xy)
 
-    def _sample_pass(self, acc, gen, sample_idx: int, n_valid: int, k: int):
-        """Trace k samples of every pixel in one batch of k·n lanes and
-        accumulate the first n_valid of them into acc = (radiance sum
-        (n,3), s1, s2, count, done)."""
+    def _sample_pass(self, acc, gen, sample_idx: int, n_valid: int, k: int,
+                     region):
+        """Trace k samples of every pixel of the window `region` in one
+        batch of k·n lanes (n = rw·rh) and accumulate the first n_valid of
+        them into acc = (radiance sum (n,3), s1, s2, count, done)."""
         cfg, dev = self.cfg, self.device
         rad_sum, s1, s2, count, done = acc
-        n = cfg.width * cfg.height
+        n = region[2] * region[3]
         if cfg.ns_aa == 1:
             jitter = torch.full((n, 2), 0.5, device=dev)
         else:
             jitter = torch.rand((k * n, 2), generator=gen, device=dev)
-        rays = self.camera_rays(jitter, gen, k)
+        rays = self.camera_rays(jitter, gen, k, region)
         active = ~done
         valid_k = torch.arange(k, device=dev) < n_valid
         lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
@@ -137,43 +162,137 @@ class Renderer:
             done = done | (active & conv)
         return (rad_sum, s1, s2, count, done), work
 
-    def render(self, progress=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Render the frame. Returns (hdr (H,W,3), sample count (H,W)) as
-        numpy arrays; the accumulators stay on the device until the end."""
+    # ------------------------------------------------------------ checkpoints
+
+    def _fingerprint(self, region) -> np.ndarray:
+        cfg = self.cfg
+        return np.array([cfg.width, cfg.height, cfg.ns_aa, cfg.seed, *region],
+                        np.int64)
+
+    def save_checkpoint(self, path: str, acc, s: int, region):
+        """Write the accumulators and the samples done to `path` (the JAX
+        package's npz keys), through a temporary file and `os.replace`."""
+        rad_sum, s1, s2, count, done = (a.cpu().numpy() for a in acc)
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, rad_sum=rad_sum, s1=s1, s2=s2, count=count, done=done,
+                 s=np.int64(s), fingerprint=self._fingerprint(region))
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path: str, region):
+        """The accumulators (on the renderer's device) and the samples done
+        of a checkpoint of this render; ValueError if it was written by a
+        render of another size, sample count, seed or region."""
+        with np.load(path) as z:
+            if not np.array_equal(z["fingerprint"],
+                                  self._fingerprint(region)):
+                raise ValueError(
+                    f"checkpoint {path} does not match this render config")
+            acc = tuple(torch.as_tensor(z[key], device=self.device)
+                        for key in ("rad_sum", "s1", "s2", "count", "done"))
+            return acc, int(z["s"])
+
+    # ------------------------------------------------------------ render loop
+
+    def render(self, progress=None, region=None, checkpoint_path=None,
+               checkpoint_every: Optional[int] = None, preview_path=None,
+               preview_every: Optional[int] = None, resume: bool = False,
+               stop_after: Optional[int] = None, control=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Render `region` = (x0, y0, rw, rh), the whole frame by default.
+        Returns (hdr (rh,rw,3), sample count (rh,rw)) as numpy arrays; the
+        accumulators stay on the device between passes.
+
+        checkpoint_path / checkpoint_every: save the accumulators every N
+        samples and when the render is cancelled; `resume=True` continues
+        from the checkpoint when it exists. preview_path / preview_every:
+        write a progressive PNG every N samples. stop_after: cancel after
+        that many samples. control: a mapping polled between passes, as
+        `--serve`'s POST /control fills it: {"stop": True} cancels,
+        {"spp_cap": N} ends at N samples per pixel, {"preview_every": N}
+        changes the preview cadence. Checkpoints, previews and stops land
+        on pass boundaries; `cancelled` and `samples_done` say how the
+        render ended."""
         cfg, dev = self.cfg, self.device
-        n = cfg.width * cfg.height
+        if region is None:
+            region = (0, 0, cfg.width, cfg.height)
+        region = tuple(int(v) for v in region)
+        _, _, rw, rh = region
+        n = rw * rh
+        # the pass size depends only on the config and the region, so a
+        # resumed render splits its samples into the same passes
         k = self.samples_per_pass(n)
-        acc = (torch.zeros((n, 3), device=dev), torch.zeros(n, device=dev),
-               torch.zeros(n, device=dev),
-               torch.zeros(n, dtype=torch.int32, device=dev),
-               torch.zeros(n, dtype=torch.bool, device=dev))
+        s = 0
+        acc = None
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            acc, s = self.load_checkpoint(checkpoint_path, region)
+        if acc is None:
+            acc = (torch.zeros((n, 3), device=dev), torch.zeros(n, device=dev),
+                   torch.zeros(n, device=dev),
+                   torch.zeros(n, dtype=torch.int32, device=dev),
+                   torch.zeros(n, dtype=torch.bool, device=dev))
         tests = torch.zeros(2, dtype=torch.float64, device=dev)
         calls = 0
-        s = 0
-        while s < cfg.ns_aa:
-            ks = min(k, cfg.ns_aa - s)
-            with self.timer.phase("passes"):
-                acc, work = self._sample_pass(
-                    acc, pass_generator(cfg.seed, s, 0, dev), s, ks, k)
-                tests = tests + work.tests
-                calls += work.calls
-            s += ks
-            if cfg.adaptive and s % cfg.samples_per_batch == 0 \
-                    and bool(torch.all(acc[4])):
-                break
-            if progress is not None:
-                progress(s, cfg.ns_aa)
+        self._stop = False
+        cancelled = False
+        try:
+            while s < cfg.ns_aa:
+                ks = min(k, cfg.ns_aa - s)
+                with self.timer.phase("passes"):
+                    new_acc, work = self._sample_pass(
+                        acc, pass_generator(cfg.seed, s, 0, dev), s, ks, k,
+                        region)
+                    acc, s = new_acc, s + ks
+                    tests = tests + work.tests
+                    calls += work.calls
+                if cfg.adaptive and s % cfg.samples_per_batch == 0 \
+                        and bool(torch.all(acc[4])):
+                    break
+                if progress is not None:
+                    progress(s, cfg.ns_aa)
+                if checkpoint_path and checkpoint_every \
+                        and s // checkpoint_every > (s - ks) // checkpoint_every:
+                    self.save_checkpoint(checkpoint_path, acc, s, region)
+                pv_every, spp_cap = preview_every, None
+                if control is not None:
+                    if control.get("stop"):
+                        self._stop = True
+                    pv_every = control.get("preview_every", preview_every)
+                    spp_cap = control.get("spp_cap")
+                if preview_path and pv_every and s < cfg.ns_aa \
+                        and s // pv_every > (s - ks) // pv_every:
+                    self._write_preview(preview_path, acc, region)
+                if (stop_after is not None and s >= stop_after) \
+                        or (spp_cap is not None and s >= int(spp_cap)) \
+                        or self._stop:
+                    cancelled = True
+                    break
+        except KeyboardInterrupt:
+            # acc and s change together, so they hold the last whole pass
+            cancelled = True
+        if cancelled and checkpoint_path:
+            self.save_checkpoint(checkpoint_path, acc, s, region)
         with self.timer.phase("passes"):        # waits for the device
-            rad_sum = acc[0].cpu().numpy()
-            count = acc[3].cpu().numpy().reshape(cfg.height, cfg.width)
-        self.last_accumulators = tuple(a.cpu().numpy() for a in acc)
+            self.last_accumulators = tuple(a.cpu().numpy() for a in acc)
+        rad_sum, count = self.last_accumulators[0], self.last_accumulators[3]
+        count = count.reshape(rh, rw)
         self.last_sample_count = count
         self.last_trace_tests = tests.cpu().numpy()
         self.last_trace_calls = calls
         self.samples_done = s
-        hdr = (rad_sum.reshape(cfg.height, cfg.width, 3)
-               / np.maximum(count[..., None], 1))
+        self.cancelled = cancelled
+        hdr = rad_sum.reshape(rh, rw, 3) / np.maximum(count[..., None], 1)
         return hdr, count
+
+    def _write_preview(self, path: str, acc, region):
+        """The partial frame as a PNG, written whole (through a temporary
+        file and `os.replace`) so that a reader never sees half of it."""
+        _, _, rw, rh = region
+        count = acc[3].cpu().numpy().reshape(rh, rw)
+        hdr = (acc[0].cpu().numpy().reshape(rh, rw, 3)
+               / np.maximum(count[..., None], 1))
+        tmp = path + ".tmp.png"
+        film.save_image(tmp, hdr)
+        os.replace(tmp, path)
 
     def stats(self, wall_seconds: float = 0.0) -> RenderStats:
         """Trace counts of the last render (the reference's total_rays;
@@ -203,12 +322,31 @@ class Renderer:
             st.measured_bbox_tests = float(self.last_trace_tests[1])
         return st
 
-    def render_to_file(self, path: str, progress=None) -> np.ndarray:
+    def render_cell(self, x, y, dx, dy, **kw) -> np.ndarray:
+        """Render the cell (x, y, dx, dy) alone (`-p x y dx dy`,
+        pathtracer.cpp:583-609): rays only for the cell, so the wall scales
+        with its area. Returns its (dy, dx, 3) HDR."""
+        hdr, _ = self.render(region=(x, y, dx, dy), **kw)
+        return hdr
+
+    def render_to_file(self, path: str, cell=None, progress=None,
+                       **kw) -> np.ndarray:
         """Headless render → PNG, plus the reference's sampling-rate
-        heatmap `<name>_rate.png` (pathtracer.cpp:684)."""
-        hdr, count = self.render(progress=progress)
+        heatmap `<name>_rate.png` (pathtracer.cpp:684). With `cell` =
+        (x, y, dx, dy) only the cell is rendered and pasted into a black
+        frame. Other keywords go to `render`."""
+        cfg = self.cfg
+        if cell is not None:
+            x, y, dx, dy = cell
+            hdr_cell, count_cell = self.render(
+                region=(x, y, dx, dy), progress=progress, **kw)
+            hdr = np.zeros((cfg.height, cfg.width, 3), np.float32)
+            hdr[y:y + dy, x:x + dx] = hdr_cell
+            count = np.zeros((cfg.height, cfg.width), np.int32)
+            count[y:y + dy, x:x + dx] = count_cell
+        else:
+            hdr, count = self.render(progress=progress, **kw)
         film.save_image(path, hdr)
         base = path[:-4] if path.endswith(".png") else path
-        film.save_sampling_rate_image(base + "_rate.png", count,
-                                      self.cfg.ns_aa)
+        film.save_sampling_rate_image(base + "_rate.png", count, cfg.ns_aa)
         return hdr

@@ -110,6 +110,7 @@ class CallProfile:
     kernel_ms: float   # of it, the trace kernel's launches
     ranges: dict       # range name -> (forward ms, backward ms) of device
     top: list = dataclasses.field(default_factory=list)  # as RenderProfile's
+    launches: int = 0  # device events (kernels, copies, fills) in the call
 
     def report(self) -> str:
         parts = [f"wall {1e3 * self.wall:.1f} ms, device "
@@ -175,4 +176,5 @@ def profile_call(fn, ranges=(), device=None) -> CallProfile:
     device_ms, kernel_ms, out, rows = split_device_time(prof.events(),
                                                         ranges)
     return CallProfile(wall=wall, device_ms=device_ms, kernel_ms=kernel_ms,
-                       ranges=out, top=rows[:CALL_TOP])
+                       ranges=out, top=rows[:CALL_TOP],
+                       launches=sum(n for _, n, _ in rows))

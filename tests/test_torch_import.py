@@ -17,9 +17,17 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "rrt_tpu"))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 assert "torch" in sys.modules
 """
+
+# modules every import check must reach: the lifecycle's tools and Kerr
+MODULES = ("rrt_tpu_torch.cli", "rrt_tpu_torch.kerr_cli",
+           "rrt_tpu_torch.physics.kerr", "rrt_tpu_torch.render.kerr_scene",
+           "rrt_tpu_torch.render.renderer", "rrt_tpu_torch.utils.serve",
+           "rrt_tpu_torch.utils.accel_walk", "rrt_tpu_torch.utils.accel_viz",
+           "rrt_tpu_torch.utils.ray_debug")
 
 
 def test_port_never_imports_jax():
@@ -29,6 +37,8 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15, out.stdout
+    names = set(out.stdout.splitlines()[1].split())
+    assert set(MODULES) <= names, set(MODULES) - names
 
 
 def test_chip_smoke_never_imports_jax():

@@ -4,7 +4,9 @@ Both packages load the in-repo Cornell box with the reference camera of a
 256×256 frame (28° FoV, the main path's view) and render a smaller frame
 through it, with the default black hole on.
 """
+import json
 import os
+import urllib.request
 
 import numpy as np
 import jax
@@ -130,6 +132,21 @@ def test_render_builds_tables_once(monkeypatch):
     assert r.last_trace_calls == 1 + 3 + 2 and len(built) == 1
 
 
+def test_cli_accepts_every_flag_of_the_jax_cli():
+    """Every option of `rrt_tpu.cli` exists in the port's CLI, with the
+    same number of arguments; the port adds --device."""
+    from rrt_tpu.cli import build_argparser as jax_argparser
+    ours = {o: a for a in cli.build_argparser()._actions
+            for o in a.option_strings}
+    theirs = {o: a for a in jax_argparser()._actions
+              for o in a.option_strings}
+    assert set(ours) - set(theirs) == {"--device"}
+    for flag, action in theirs.items():
+        assert (ours[flag].nargs, ours[flag].dest, ours[flag].default,
+                ours[flag].const) == (action.nargs, action.dest,
+                                      action.default, action.const), flag
+
+
 def test_cli_writes_png(tmp_path):
     out = str(tmp_path / "cbox.png")
     r = cli.main(["-f", out, "-r", "16", "16", "-s", "1", "--device", "cpu",
@@ -141,13 +158,47 @@ def test_cli_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["-p", "0", "0", "4", "4"],
-                                  ["--checkpoint", "c.npz"], ["--serve"],
+                                  ["--checkpoint", "c.npz"], ["--serve", "0"],
                                   ["--dump-rays", "r"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main([CBOX_SPHERES] + flag)
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+def test_cli_refuses_unported_flags(flag, tmp_path, monkeypatch):
+    """The flags that the port once refused as not yet ported now run on a
+    16×16 CPU render and leave their output: the cell image, the
+    checkpoint, a status served over HTTP during the render, the ray
+    log."""
+    from rrt_tpu_torch.utils.serve import PreviewServer
+    monkeypatch.chdir(tmp_path)
+    served = []
+    if flag[0] == "--serve":
+        real = PreviewServer.update
+
+        def update(self, *a, **kw):
+            real(self, *a, **kw)
+            url = f"http://127.0.0.1:{self.port}/status.json"
+            with urllib.request.urlopen(url, timeout=10) as r:
+                served.append(json.loads(r.read()))
+        monkeypatch.setattr(PreviewServer, "update", update)
+    extra = {"-p": ["--illum", "0"], "--checkpoint": ["-s", "8"]}.get(
+        flag[0], [])
+    r = cli.main(["-f", "o.png", "-r", "16", "16", "--device", "cpu"]
+                 + extra + flag + [CBOX_SPHERES])
+    img = read_png("o.png")
+    assert img.shape == (16, 16, 4) and os.path.exists("o_rate.png")
+    if flag[0] == "-p":
+        # the cell is rows 0-3 from the bottom: the PNG's last four rows
+        assert r.last_sample_count.shape == (4, 4)
+        assert img[12:, :4, :3].max() > 0 and img[:12, :, :3].max() == 0
+    elif flag[0] == "--checkpoint":
+        with np.load("c.npz") as z:
+            assert int(z["s"]) == 8 and z["rad_sum"].shape == (256, 3)
+    elif flag[0] == "--serve":
+        assert served[0]["samples"] == 0 and served[-1] == {
+            "samples": 1, "total": 1, "done": True,
+            "accel": {"level": "root", "index": 0, "tri_rows": [0, 64],
+                      "depth": 1}}
+        assert os.path.getsize("o.png.preview.png") > 0
+    else:
+        with np.load("r_raylog.npz") as z:
+            assert z["outcome"].shape == (16, 16)
 
 
 def _flat_renderer(**kw):
