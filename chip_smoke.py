@@ -80,15 +80,32 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    RK4 steps/s, peak memory, launches per RK4 step and the busy share;
    a 32×32, 300-step render on the card against the CPU (≥ 99% of lanes
    agree on the disk and escape masks, radiance to rtol 1e-3 there);
+4j. the lane-sharded main path on a world of 1 over NCCL
+   (`parallel.distributed.initialize`): `Renderer(sharding=)` at
+   256×256, 16 spp, -l 4, -m 5 equal to the unsharded render bit for bit,
+   launches equal to trace calls, both renders' warm walls in turns;
+   `trace`/`occluded(mesh=)` on 65,536 seeded rays equal to the unsharded
+   queries; phase 4b's gradient step with `mesh=` (rtol 1e-4 on the
+   material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at 64×64,
+   300 steps (rtol 1e-6);
+4k. two ranks of `rrt_tpu_torch.parallel.worker` on the one card over
+   gloo at 255×255 (an odd lane count): the blocks tile the frame, the
+   forward equals the whole frame's rows and the sharded render this
+   process's single-process render bit for bit; each rank's times;
+4l. the tools: `scaling_bench --card` (sharded against unsharded, in
+   turns), `run_config` configs 1-3 (the box at 256² 4 spp direct;
+   `cbox_dense` and the mirror and glass box at 512² 64 spp, -m 5 -l 1:
+   a finite, lit image, launches equal to trace calls; their JSON
+   lines) and `kbench 20` on `cbox_dense` and the Cornell box;
 5. the bench (`rrt_tpu_torch.bench`, in-process): probe, build, the
    primary and the BVH-scale cell; its JSON line is printed;
 6. the cost-probe tool's path (`rrt_tpu_torch.tools.r5prim`): every probe
    timed at two iteration counts, beside its plain version;
 7. a JSON line of the kernels, then the ok line.
 
-Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 5, 6) is driven with the kernels'
-launch counts set to 0 just before it and read just after: every kernel
-of the path must have launched in it.
+Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 4j, 4k, 4l, 5, 6) is driven
+with the kernels' launch counts set to 0 just before it and read just
+after: every kernel of the path must have launched in it.
 
 Any failure raises, and the script exits non-zero without the ok line.
 """
@@ -601,6 +618,227 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
                 steps_per_s=n * n_steps / wall, peak_mib=peak,
                 launches_per_step=per_step, busy=busy,
                 agree=float(agree.mean()))
+
+
+def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
+                  kerr_size=64, kerr_steps=300):
+    """4j: the lane-sharded main path at full width on a world of 1 over
+    NCCL: `Renderer(sharding=)` at 256×256, 16 spp, -l 4, -m 5 (its
+    accumulators equal the unsharded render's bit for bit, launches equal
+    to trace calls, warm walls of both in turns), `trace`/`occluded(mesh=)`
+    on 65,536 seeded rays (equal), phase 4b's gradient step with `mesh=`
+    (rtol 1e-4 on the material leaves, 5e-3 on the hole's) and
+    `kerr_cli --sharded` at 64×64, 300 steps (rtol 1e-6)."""
+    import torch
+    import torch.distributed as dist
+    from rrt_tpu_torch import kerr_cli
+    from rrt_tpu_torch.geometry import trace as tracer
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.parallel import sharding as sh
+    from rrt_tpu_torch.render import diff
+    from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
+    from rrt_tpu_torch.scene.build import load_scene
+    from rrt_tpu_torch.scenes import CBOX_SPHERES
+    from rrt_tpu_torch.tools import inverse
+    from rrt_tpu_torch.tools.scaling_bench import free_port
+    from rrt_tpu_torch.tools.trace_modes import BOX, box_rays
+    from rrt_tpu_torch.utils.config import RenderConfig
+    out = {}
+    pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = sh.make_mesh(dev)
+        sharding = sh.batch_sharding(mesh)
+        cfg = RenderConfig(width=size, height=size, ns_aa=spp,
+                           ns_area_light=4, max_ray_depth=5)
+        scene, cam = load_scene(CBOX_SPHERES, dev, size, size)
+        plain_r = Renderer(scene, cam, cfg, dev)
+        shard_r = Renderer(scene, cam, cfg, dev, sharding=sharding)
+        plain_r.render()
+        tk.LAUNCHES = 0
+        pdist.COLLECTIVES.update(calls=0, bytes=0)
+        shard_r.render()
+        torch.cuda.synchronize(dev)
+        out["launches"] = tk.LAUNCHES
+        out["trace_calls"] = shard_r.last_trace_calls
+        out["collectives"] = dict(pdist.COLLECTIVES)
+        if out["launches"] != out["trace_calls"] or out["launches"] == 0:
+            raise AssertionError(f"sharded render: {out['launches']} "
+                                 f"launches for {out['trace_calls']} calls")
+        out["equal"] = all(np.array_equal(a, b) for a, b in zip(
+            shard_r.last_accumulators, plain_r.last_accumulators))
+        if not out["equal"]:
+            raise AssertionError("the sharded render's accumulators differ "
+                                 "from the unsharded render's")
+        walls = {"unsharded": [], "sharded": []}
+        for name in ("unsharded", "sharded", "sharded", "unsharded") * 2:
+            r = plain_r if name == "unsharded" else shard_r
+            walls[name].append(_timed_call(dev, r.render)[0])
+        out["walls"] = walls
+        print(f"[smoke] sharded main path {size}x{size} {spp}spp -l 4 -m 5 "
+              f"on a world of 1 over nccl: accumulators equal to the "
+              f"unsharded render's; {out['launches']} launches = trace "
+              f"calls; {out['collectives']['calls']} collectives, "
+              f"{out['collectives']['bytes']} bytes a render; warm walls "
+              f"(s) unsharded {[round(w, 4) for w in walls['unsharded']]}, "
+              f"sharded {[round(w, 4) for w in walls['sharded']]} ({card})")
+
+        rays = box_rays(n_rays, 11, dev, *BOX)
+        bh = make_black_hole(cfg, dev)
+        tab = tk.build_tables(scene, bh)
+        for occ in (False, True):
+            h, st = tracer.trace(scene, bh, rays, return_stats=True,
+                                 occlusion=occ, tables=tab)
+            tk.LAUNCHES = 0
+            hm, stm = tracer.trace(scene, bh, rays, return_stats=True,
+                                   occlusion=occ, tables=tab, mesh=mesh)
+            if tk.LAUNCHES != 1:
+                raise AssertionError(f"trace(mesh=): {tk.LAUNCHES} launches")
+            same = all(torch.equal(getattr(hm, f), getattr(h, f)) for f in
+                       ("hit", "t", "p", "n", "w_out", "prim_id", "bsdf_id"))
+            if not (same and torch.equal(stm, st)):
+                raise AssertionError(f"trace(mesh=, occlusion={occ}) differs")
+        o = tracer.occluded(scene, bh, rays, tables=tab)
+        if not torch.equal(tracer.occluded(scene, bh, rays, tables=tab,
+                                           mesh=mesh), o):
+            raise AssertionError("occluded(mesh=) differs")
+        print(f"[smoke] trace(mesh=) and occluded(mesh=) on {n_rays} seeded "
+              f"rays: equal to the unsharded queries, counters too")
+
+        dcfg = cfg.replace(ns_aa=1)
+        dbh = make_black_hole(dcfg, dev)
+        drays = inverse.pixel_rays(cam, size, size, dev)
+        params = diff.params_from_scene(scene, dbh)
+        target = torch.zeros_like(drays.o)
+        grads, glaunch, gwalls = {}, {}, {"unsharded": [], "sharded": []}
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            tk.LAUNCHES = 0
+            t0 = time.perf_counter()
+            loss, g = diff.loss_and_grad(
+                params, scene, dbh, drays, target, dcfg,
+                torch.Generator(device=dev).manual_seed(0),
+                mesh=mesh if name == "sharded" else None)
+            torch.cuda.synchronize(dev)
+            gwalls[name].append(time.perf_counter() - t0)
+            grads[name] = (loss, g)
+            glaunch[name] = tk.LAUNCHES
+        if glaunch["sharded"] != glaunch["unsharded"] or not glaunch["sharded"]:
+            raise AssertionError(f"gradient step launches {glaunch}")
+        names = [f.name for f in dataclasses.fields(diff.SceneParams)]
+        worst = {}
+        for name, a, b in zip(names, grads["sharded"][1].leaves(),
+                              grads["unsharded"][1].leaves()):
+            rtol = 5e-3 if name.startswith("bh_") else 1e-4
+            if not torch.allclose(a, b, rtol=rtol, atol=1e-7):
+                raise AssertionError(f"sharded gradient of {name} differs")
+            worst[name] = float((a - b).abs().max())
+        out["grad_launches"] = glaunch["sharded"]
+        out["grad_s"] = gwalls
+        print(f"[smoke] gradient step {size}x{size} 1spp with mesh=: loss "
+              f"{grads['sharded'][0].item():.6g} (unsharded "
+              f"{grads['unsharded'][0].item():.6g}), every leaf within its "
+              f"rtol, max abs differences {worst}; {glaunch['sharded']} "
+              f"launches; walls in turns (s) {out['grad_s']} ({card})")
+
+        k_args = ["-r", str(kerr_size), str(kerr_size), "--steps",
+                  str(kerr_steps), "--device", "cuda"]
+        t0 = time.perf_counter()
+        img_s = kerr_cli.main(["-f", os.path.join(tmp, "ks.png"),
+                               "--sharded"] + k_args)
+        ks_wall = time.perf_counter() - t0
+        img_u = kerr_cli.main(["-f", os.path.join(tmp, "ku.png")] + k_args)
+        if not np.allclose(img_s, img_u, rtol=1e-6, atol=1e-7):
+            raise AssertionError("kerr_cli --sharded differs")
+        out["kerr_sharded_s"] = ks_wall
+        print(f"[smoke] kerr_cli --sharded {kerr_size}x{kerr_size} "
+              f"{kerr_steps} steps: equal to the unsharded image within "
+              f"rtol 1e-6 (max abs diff {np.abs(img_s - img_u).max():.3g}), "
+              f"{ks_wall:.2f} s ({card})")
+    finally:
+        pdist.shutdown()
+    return out
+
+
+def two_process_phase(dev, card, tmp, size="255x255"):
+    """4k: two ranks of `rrt_tpu_torch.parallel.worker` on the one card
+    over gloo (NCCL refuses two ranks on one card), on a ragged frame: both
+    exit 0, their forward blocks tile the frame and equal this process's
+    whole-frame forward rows (checked in each rank), and their sharded
+    render's accumulators equal this process's single-process render bit
+    for bit, with launches equal to trace calls in each rank."""
+    from rrt_tpu_torch.parallel import worker
+    from rrt_tpu_torch.tools.scaling_bench import spawn_workers
+    w, h = worker.frame_size(size)
+    t0 = time.perf_counter()
+    res, logs = spawn_workers(2, size, tmp, device="cuda", backend="gloo",
+                              checks="render", timeout=600)
+    wall = time.perf_counter() - t0
+    ref = worker.reference(["render"], w, h, dev, os.path.join(tmp, "r.png"))
+    bounds = [(int(r["lo"]), int(r["hi"])) for r in res]
+    if bounds[0][0] != 0 or bounds[0][1] != bounds[1][0] \
+            or bounds[1][1] != w * h:
+        raise AssertionError(f"blocks {bounds} do not tile {w * h} lanes")
+    for rank, r in enumerate(res):
+        for key in ("rad_sum", "s1", "s2", "count", "done"):
+            if not np.array_equal(r[f"render_{key}"], ref[f"render_{key}"]):
+                raise AssertionError(f"rank {rank}: render {key} differs")
+        if int(r["render_launches"]) != int(r["render_calls"]) \
+                or int(r["render_launches"]) == 0:
+            raise AssertionError(f"rank {rank}: {r['render_launches']} "
+                                 f"launches for {r['render_calls']} calls")
+    for log in logs:
+        print(f"[smoke] rank: {log.strip().splitlines()[-1]}")
+    out = dict(wall=wall, blocks=bounds,
+               dt=[float(r["dt"]) for r in res],
+               render_dt=[float(r["render_dt"]) for r in res],
+               launches=[int(r["render_launches"]) for r in res],
+               max_err=[float(r["max_err"]) for r in res])
+    print(f"[smoke] two ranks on one card over gloo, {w}x{h} ({w * h} "
+          f"lanes): blocks {bounds}, forward dt {out['dt']} s, sharded "
+          f"render {out['render_dt']} s ({out['launches']} launches = trace "
+          f"calls), accumulators equal to the single-process render; "
+          f"{wall:.1f} s with the processes' start ({card})")
+    return out
+
+
+def tools_phase(dev, card):
+    """4l: `scaling_bench --card` (the sharding layer's cost: sharded and
+    unsharded forwards of 65,536 lanes in turns, equal results),
+    `run_config` for configs 1-3 (a finite image with mean > 0, launches
+    equal to trace calls) and `kbench 20` on cbox_dense and the Cornell
+    box (launches equal to trace calls)."""
+    from rrt_tpu_torch.scenes import CBOX_SPHERES
+    from rrt_tpu_torch.tools import kbench, run_config, scaling_bench
+    gap = scaling_bench.card_gap(256)
+    print(f"[smoke] scaling_bench --card: {json.dumps(gap)}")
+    if not gap["equal"]:
+        raise AssertionError("scaling_bench --card: sharded != unsharded")
+    configs = {}
+    for i in sorted(run_config.CONFIGS):
+        res, hdr, report = run_config.run(run_config.CONFIGS[i]
+                                          + ["--device", "cuda"])
+        print(f"[smoke] run_config {i}: {json.dumps(res)} ({card})")
+        print(f"[smoke] run_config {i}: {report.replace(chr(10), ' | ')}")
+        if not (np.isfinite(hdr).all() and res["mean_radiance"] > 0):
+            raise AssertionError(f"run_config {i}: image not finite or dark")
+        if res["launches"] != res["trace_calls"] or res["launches"] == 0:
+            raise AssertionError(f"run_config {i}: {res['launches']} "
+                                 f"launches for {res['trace_calls']} calls")
+        configs[i] = res
+    kb = {}
+    for scene in ("cbox_dense", CBOX_SPHERES):
+        head, rows = kbench.run(20, "kernel", scene=scene, device=dev)
+        name = os.path.basename(scene)
+        print(f"[smoke] kbench 20: {head}")
+        for r in rows:
+            print(f"[smoke] kbench {name} {json.dumps(r)} ({card})")
+            if r["launches"] != r["trace_calls"]:
+                raise AssertionError(f"kbench {name}: {r['launches']} "
+                                     f"launches for {r['trace_calls']}")
+        kb[name] = rows
+    return dict(card_gap=gap, configs=configs, kbench=kb)
 
 
 def main(argv=None):
@@ -1141,6 +1379,12 @@ def main(argv=None):
         dumps = dumps_phase(dev, card, tmp)
     kerr_out = kerr_phase(dev, card)
 
+    # ---- 4j-4l. the lane-sharded path, two ranks on the card, the tools
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        sharded = sharded_phase(dev, card, tmp)
+        two = two_process_phase(dev, card, tmp)
+    tools_out = tools_phase(dev, card)
+
     # ---- 5. the bench, in-process: the probe kernel and the trace kernel
     tk.LAUNCHES, tprobe.LAUNCHES = 0, 0
     bench_out, diag = bench.run(dev)
@@ -1166,6 +1410,8 @@ def main(argv=None):
 
     print(f"[smoke] phases 4f-4i: " + json.dumps(dict(
         lifecycle=life, serve=served, dumps=dumps, kerr=kerr_out)))
+    print(f"[smoke] phases 4j-4l: " + json.dumps(dict(
+        sharded=sharded, two_ranks=two, tools=tools_out)))
 
     # ---- 7. result lines
     ms, plain_ms = times["closest-hit"]
@@ -1213,6 +1459,13 @@ def main(argv=None):
         "lifecycle_launches": life["launches"],
         "dump_launches": dumps["launches"],
         "dump_rays_launches": [r_["launches"] for r_ in dumps["rows"]],
+        "sharded_launches": sharded["launches"],
+        "sharded_grad_launches": sharded["grad_launches"],
+        "two_rank_launches": two["launches"],
+        "run_config_launches": {i: c["launches"] for i, c in
+                                tools_out["configs"].items()},
+        "kbench_launches": {name: [r_["launches"] for r_ in rows_]
+                            for name, rows_ in tools_out["kbench"].items()},
     }, {
         "name": "probe",
         "route": "cuda",

@@ -12,9 +12,14 @@ a full 2π march without an event is an escape. Flat mode honours
 discrete structure (which primitive, on which chord) without autograd,
 then the winning chord and the winning primitive's intersection are
 re-derived from the live parameters in plain PyTorch.
+
+With `mesh=` (a `parallel.sharding.LaneMesh`) every rank holds the whole
+batch and traces its block of the lanes; the blocks are put together
+(`_trace_sharded`, the port of JAX's `shard_map` trace).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -24,32 +29,73 @@ from rrt_tpu_torch.geometry.intersect import (build_hit, sphere_intersect,
                                               tri_intersect)
 from rrt_tpu_torch.ops.trace_kernel import (TraceTables, build_tables,
                                             kernel_trace)
+from rrt_tpu_torch.parallel import distributed as pdist
+from rrt_tpu_torch.parallel import sharding as sh
 from rrt_tpu_torch.physics.schwarzschild import grad_guard, micro_step
-from rrt_tpu_torch.types import BlackHoleParams, Rays, SceneData
+from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
 
 # chords longer than this are wrapped (u ≤ 0 teleport) or about to be
 CHAOS_CHORD = 50.0
 
 
+def _trace_sharded(scene, bh, tab: TraceTables, rays: Rays, mesh,
+                   occlusion: bool, return_seg: bool):
+    """The trace of the whole batch over the ranks of `mesh` (the port of
+    `_trace_sharded`, rrt_tpu/geometry/trace.py:505-578). The lanes are
+    flattened and padded to a multiple of the world with lanes that end
+    at once (`sharding.pad_dead_lanes`); each rank traces its block
+    (`shard_bounds`) on the kernel; the Hit fields (and the winning
+    chords) are gathered and cut to the batch, the (2,) counters summed.
+    A lane's result does not depend on its batch, so the result equals
+    the unsharded trace bit for bit; the counters also hold the padded
+    lanes' tests (none in curved mode, one box test a part and one for
+    the sphere box in flat mode). Returns (Hit, chords or None,
+    counters)."""
+    shape = rays.o.shape[:-1]
+    flat = Rays(o=rays.o.reshape(-1, 3), d=rays.d.reshape(-1, 3),
+                min_t=rays.min_t.reshape(-1), max_t=rays.max_t.reshape(-1))
+    n = flat.min_t.shape[0]
+    padded = sh.pad_dead_lanes(flat, sh.pad_to_multiple(n, mesh.world),
+                               bh if tab.curved else None)
+    out = kernel_trace(scene, tab, sh.shard_batch(padded, mesh),
+                       occlusion=occlusion, return_seg=return_seg,
+                       return_stats=True)
+    names = [f.name for f in dataclasses.fields(Hit)]
+    parts = [getattr(out[0], k) for k in names] + list(out[1:-1])
+    whole = [a.reshape(tuple(shape) + a.shape[1:])
+             for a in pdist.all_gather_lanes(parts, mesh, n)]
+    h = Hit(**dict(zip(names, whole)))
+    seg = whole[len(names)] if return_seg else None
+    return h, seg, pdist.all_reduce_sum(out[-1], mesh)
+
+
 def trace(scene: SceneData, bh: Optional[BlackHoleParams], rays: Rays,
           return_stats: bool = False, occlusion: bool = False,
-          tables: Optional[TraceTables] = None):
+          tables: Optional[TraceTables] = None, mesh=None):
     """First event of every ray. Returns Hit, plus the summed (2,)
     [primitive tests, bbox tests] with `return_stats`. `occlusion=True`
     is the any-hit mode: the hit bool is exact, the rest of Hit is that
     of some hit on the first hitting chord. `tables` are
     `build_tables(scene, bh)`, which fix the mode and the chord count;
-    they are made here when not given."""
+    they are made here when not given. With `mesh` the lanes are traced
+    over its ranks (`_trace_sharded`)."""
     tab = build_tables(scene, bh) if tables is None else tables
+    if mesh is not None:
+        h, _, st = _trace_sharded(scene, bh, tab, rays, mesh, occlusion,
+                                  False)
+        return (h, st) if return_stats else h
     return kernel_trace(scene, tab, rays, occlusion=occlusion,
                         return_stats=return_stats)
 
 
 def trace_with_seg(scene: SceneData, bh: Optional[BlackHoleParams],
-                   rays: Rays, tables: Optional[TraceTables] = None):
+                   rays: Rays, tables: Optional[TraceTables] = None,
+                   mesh=None):
     """Closest hit, the winning chord index of every ray (n_seg when there
     is no event, 0 for a flat hit) and the summed (2,) work counters."""
     tab = build_tables(scene, bh) if tables is None else tables
+    if mesh is not None:
+        return _trace_sharded(scene, bh, tab, rays, mesh, False, True)
     return kernel_trace(scene, tab, rays, return_seg=True, return_stats=True)
 
 
@@ -78,7 +124,7 @@ def _replay(o, d, bh: BlackHoleParams, sgc, n_seg: int):
 
 def trace_diff(scene: SceneData, bh: Optional[BlackHoleParams], rays: Rays,
                tables: Optional[TraceTables] = None,
-               return_stats: bool = False):
+               return_stats: bool = False, mesh=None):
     """Differentiable closest hit: the kernel's discrete primal, then the
     continuous payload re-derived under autograd.
 
@@ -94,10 +140,12 @@ def trace_diff(scene: SceneData, bh: Optional[BlackHoleParams], rays: Rays,
     winning triangle or sphere is re-intersected, differentiably.
     Visibility gradients are out of scope, as in the JAX package
     (rrt_tpu/geometry/trace.py:662-756). Returns Hit, plus the kernel's
-    summed (2,) work counters with `return_stats`."""
+    summed (2,) work counters with `return_stats`. With `mesh` the primal
+    is traced over its ranks and the replay runs on every rank's whole
+    batch."""
     tab = build_tables(scene, bh) if tables is None else tables
     with torch.no_grad():
-        h0, seg, stats = trace_with_seg(scene, bh, rays, tab)
+        h0, seg, stats = trace_with_seg(scene, bh, rays, tab, mesh)
     hitm, prim = h0.hit, h0.prim_id
     shape = hitm.shape
 
@@ -130,7 +178,7 @@ def trace_diff(scene: SceneData, bh: Optional[BlackHoleParams], rays: Rays,
 
 def occluded(scene: SceneData, bh: Optional[BlackHoleParams], rays: Rays,
              return_stats: bool = False,
-             tables: Optional[TraceTables] = None):
+             tables: Optional[TraceTables] = None, mesh=None):
     """Shadow query: does the ray hit anything? In curved mode the shadow
     ray's distance to the light is ignored (chords carry their own
     ranges) and a path absorbed by the hole is not occluded
@@ -138,7 +186,7 @@ def occluded(scene: SceneData, bh: Optional[BlackHoleParams], rays: Rays,
     query never enters autograd."""
     with torch.no_grad():
         out = trace(scene, bh, rays, return_stats=return_stats,
-                    occlusion=True, tables=tables)
+                    occlusion=True, tables=tables, mesh=mesh)
     if return_stats:
         h, st = out
         return h.hit, st

@@ -7,8 +7,10 @@ config 5): `python -m rrt_tpu_torch.kerr_cli`. The port of
 
 The flags are the JAX CLI's, plus --device (default cuda; without a card
 it exits with an error, and the CPU renders only when asked for with
-`--device cpu`). --sharded is refused until the port has lanes over
-several processes (ROADMAP.md).
+`--device cpu`). --sharded splits every batch's lanes over the ranks of
+the process group that the RRT_COORDINATOR / RRT_NUM_PROCESSES /
+RRT_PROCESS_ID variables describe (one process per device; a world of 1
+without them); rank 0 writes the image.
 """
 from __future__ import annotations
 
@@ -40,8 +42,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=600)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sharded", action="store_true",
-                   help="lane-shard batches over several processes (not "
-                        "yet ported; see ROADMAP.md)")
+                   help="lane-shard batches over the processes of the "
+                        "RRT_* group (parallel/sharding mesh)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: cuda)")
     return p
@@ -50,14 +52,20 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.sharded:
-        parser.error("--sharded is not yet ported to rrt_tpu_torch: lanes "
-                     "over torch.distributed are the next slice (see "
-                     "ROADMAP.md, Queue 1)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         parser.error("CUDA is not available; pass --device cpu to render "
                      "on the CPU")
+    sharding, joined = None, False
+    if args.sharded:
+        from rrt_tpu_torch.parallel import distributed as pdist
+        from rrt_tpu_torch.parallel import sharding as sh
+        joined = not pdist.is_initialized() \
+            and pdist.initialize_from_env(device=device.type)
+        mesh = sh.make_mesh(device)
+        device = mesh.device
+        sharding = sh.batch_sharding(mesh)
+        print(f"[KerrTracer] lane-sharded over {mesh.world} device(s)")
     env = None
     if args.envmap:
         from rrt_tpu_torch.io.exr import read_exr
@@ -73,13 +81,19 @@ def main(argv=None):
     t0 = time.time()
     img = K.render_image(w, h, bh, disk, eye=tuple(args.eye),
                          fov_deg=args.fov, env=env, spp=args.spp,
-                         seed=args.seed, n_steps=args.steps, device=device)
+                         seed=args.seed, n_steps=args.steps, device=device,
+                         sharding=sharding)
     dt = time.time() - t0
     n_rays = w * h * args.spp
     print(f"[KerrTracer] {dt:.1f}s — {n_rays / dt:.3g} rays/s, "
           f"{n_rays * args.steps / dt:.3g} RK4 steps/s")
-    film.save_image(args.outfile, img[::-1])
-    print(f"[KerrTracer] Saved {args.outfile}")
+    if sharding is None or sharding.mesh.rank == 0:
+        film.save_image(args.outfile, img[::-1])
+        print(f"[KerrTracer] Saved {args.outfile}")
+    if sharding is not None:
+        pdist.all_processes_done("image")
+    if joined:
+        pdist.shutdown()
     return img
 
 

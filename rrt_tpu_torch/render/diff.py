@@ -18,6 +18,15 @@ target, its gradient over the leaves, one SGD update on the
 Random numbers come from the caller's `torch.Generator`. An objective
 evaluated again with "the same key" takes a fresh generator with the same
 seed, so that it is deterministic.
+
+With `mesh=` (a `parallel.sharding.LaneMesh`) every rank holds the whole
+ray batch and target and renders its block of the lanes with the batch's
+draws windowed to them (`LaneWindow`); its share of the loss is
+Σ (img − target)² over its lanes / the batch's elements. Each rank takes
+the gradient of its share by itself, and the loss and every gradient
+leaf are then summed over the ranks: no collective inside autograd. This
+stands for the all-reduce that GSPMD inserts for the JAX package's
+sharded `jax.grad` (rrt_tpu/render/diff.py:109-124).
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ import numpy as np
 import torch
 
 from rrt_tpu_torch.ops.trace_kernel import build_tables
+from rrt_tpu_torch.parallel import distributed as pdist
+from rrt_tpu_torch.parallel.sharding import LaneWindow, shard_bounds
 from rrt_tpu_torch.physics.schwarzschild import n_segments
 from rrt_tpu_torch.render.integrator import est_radiance
 from rrt_tpu_torch.types import BlackHoleParams, Rays, SceneData, _Tensors
@@ -124,33 +135,52 @@ def render_radiance(params: SceneParams, scene: SceneData,
 def image_loss(params: SceneParams, scene: SceneData,
                bh: Optional[BlackHoleParams], rays: Rays,
                target: torch.Tensor, cfg: RenderConfig,
-               gen: torch.Generator) -> torch.Tensor:
-    """Mean L2 loss between the rendered radiance and a target batch."""
-    img = render_radiance(params, scene, bh, rays, cfg, gen)
-    return torch.mean((img - target) ** 2)
+               gen: torch.Generator, mesh=None) -> torch.Tensor:
+    """Mean L2 loss between the rendered radiance and a target batch; with
+    `mesh`, this rank's share of it (the shares sum to the loss)."""
+    if mesh is None:
+        img = render_radiance(params, scene, bh, rays, cfg, gen)
+        return torch.mean((img - target) ** 2)
+    n = rays.min_t.shape[0]
+    lo, hi = shard_bounds(n, mesh.rank, mesh.world)
+    lo, hi = min(lo, n), min(hi, n)
+    block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi], min_t=rays.min_t[lo:hi],
+                 max_t=rays.max_t[lo:hi])
+    img = render_radiance(params, scene, bh, block, cfg,
+                          LaneWindow(gen, lo, hi, n))
+    return torch.sum((img - target[lo:hi]) ** 2) / target.numel()
 
 
 def loss_and_grad(params: SceneParams, scene: SceneData,
                   bh: Optional[BlackHoleParams], rays: Rays,
                   target: torch.Tensor, cfg: RenderConfig,
-                  gen: torch.Generator):
+                  gen: torch.Generator, mesh=None):
     """(loss, gradient as SceneParams) of `image_loss`; a leaf the loss
-    does not reach gets a zero gradient."""
+    does not reach gets a zero gradient. With `mesh` both are summed over
+    the ranks after each rank's own backward pass."""
     leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
     loss = image_loss(SceneParams.from_leaves(leaves), scene, bh, rays,
-                      target, cfg, gen)
+                      target, cfg, gen, mesh)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), SceneParams.from_leaves(
-        [torch.zeros_like(x) if g is None else g
-         for x, g in zip(leaves, grads)])
+    loss = loss.detach()
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    if mesh is not None:          # one all-reduce of the loss and leaves
+        flat = pdist.all_reduce_sum(torch.cat(
+            [loss.reshape(1)] + [g.reshape(-1) for g in grads]), mesh)
+        loss = flat[0]
+        parts = flat[1:].split([g.numel() for g in grads])
+        grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
+    return loss, SceneParams.from_leaves(grads)
 
 
 def train_step(params: SceneParams, opt_state, scene: SceneData,
                bh: Optional[BlackHoleParams], rays: Rays, target, cfg,
-               gen: torch.Generator, lr: float = 1e-2):
-    """One inverse-rendering SGD step on the `nan_to_num`'d gradient.
-    Returns (params, opt_state, loss)."""
-    loss, g = loss_and_grad(params, scene, bh, rays, target, cfg, gen)
+               gen: torch.Generator, lr: float = 1e-2, mesh=None):
+    """One inverse-rendering SGD step on the `nan_to_num`'d gradient
+    (summed over the ranks of `mesh`). Returns (params, opt_state,
+    loss)."""
+    loss, g = loss_and_grad(params, scene, bh, rays, target, cfg, gen, mesh)
     new = [(p.detach() - lr * torch.nan_to_num(d))
            for p, d in zip(params.leaves(), g.leaves())]
     return SceneParams.from_leaves(new), opt_state, loss

@@ -19,7 +19,12 @@ Gradients reach the materials, the light radiance and the hole through
 the continuous factors; discrete decisions carry none.
 
 Random numbers come from the caller's `torch.Generator`, drawn in a fixed
-order per vertex: light samples, the roulette coin, the BSDF sample.
+order per vertex: light samples, the roulette coin, the BSDF sample. A
+`parallel.sharding.LaneWindow` in its place makes the estimate of a
+rank's block of a larger batch: every draw takes the whole batch's shape
+and keeps the block's lanes, so that the blocks equal the whole batch's
+estimate. With `mesh=` every trace runs over the mesh's ranks
+(`geometry.trace`), each rank holding the whole batch.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from rrt_tpu_torch.geometry import trace as tracer
 from rrt_tpu_torch.ops.trace_kernel import TraceTables
+from rrt_tpu_torch.parallel.sharding import lane_rand, on_axis
 from rrt_tpu_torch.render import bsdf as bsdflib
 from rrt_tpu_torch.render import lights as lightlib
 from rrt_tpu_torch.scene import envmap as envlib
@@ -58,26 +64,26 @@ def _no_work(device) -> TraceWork:
     return TraceWork(torch.zeros(2, dtype=torch.float64, device=device))
 
 
-def _uniform(gen: torch.Generator, shape, like: torch.Tensor):
-    return torch.rand(shape, generator=gen, dtype=like.dtype,
-                      device=like.device)
+def _uniform(gen, shape, like: torch.Tensor):
+    """Uniforms from a `torch.Generator` or a `LaneWindow`."""
+    return lane_rand(gen, shape, like.device, like.dtype)
 
 
 def _trace(scene, bh, tab: TraceTables, rays, cfg: RenderConfig,
-           occlusion=False, discrete=False):
+           occlusion=False, discrete=False, mesh=None):
     """One batched query; returns (Hit or hit bool, TraceWork). Under
     `cfg.differentiable` a closest hit is `trace_diff`'s, unless only its
     `discrete` part (hit mask, material id) is used."""
     if occlusion:
         hit, st = tracer.occluded(scene, bh, rays, return_stats=True,
-                                  tables=tab)
+                                  tables=tab, mesh=mesh)
     elif cfg.differentiable and not discrete:
         hit, st = tracer.trace_diff(scene, bh, rays, tables=tab,
-                                    return_stats=True)
+                                    return_stats=True, mesh=mesh)
     else:
         with torch.no_grad():
             hit, st = tracer.trace(scene, bh, rays, return_stats=True,
-                                   tables=tab)
+                                   tables=tab, mesh=mesh)
     return hit, TraceWork(st, 1 if rays.min_t.numel() else 0)
 
 
@@ -96,7 +102,7 @@ def _frames(hit: Hit):
 
 
 def light_samples(scene: SceneData, hit: Hit, cfg: RenderConfig,
-                  gen: torch.Generator) -> list:
+                  gen) -> list:
     """The (light, sample) draws of one vertex's NEE, in order: per
     light, 1 (delta) or ns_area_light samples."""
     samples = []
@@ -126,8 +132,7 @@ def shadow_rays(bh, hit: Hit, frames, chunk: list, cfg: RenderConfig):
 
 
 def direct_lighting_importance(scene: SceneData, bh, tab: TraceTables,
-                               hit: Hit, cfg: RenderConfig,
-                               gen: torch.Generator):
+                               hit: Hit, cfg: RenderConfig, gen, mesh=None):
     """estimate_direct_lighting_importance (part1_code.cpp:33-57): the
     (light, sample) axis of `light_samples` is stacked and traced in
     chunks of at most cfg.nee_chunk, one shadow query per chunk."""
@@ -144,7 +149,8 @@ def direct_lighting_importance(scene: SceneData, bh, tab: TraceTables,
     for start in range(0, total, c):
         chunk = samples[start:start + c]
         wi_l, facing, shadow = shadow_rays(bh, hit, frames, chunk, cfg)
-        occ, w = _trace(scene, bh, tab, shadow, cfg, occlusion=True)
+        occ, w = _trace(scene, bh, tab, shadow, cfg, occlusion=True,
+                        mesh=mesh)
         work = work + w
         rad = torch.stack([s.radiance for s in chunk])
         pdf = torch.stack([s.pdf for s in chunk])
@@ -157,8 +163,7 @@ def direct_lighting_importance(scene: SceneData, bh, tab: TraceTables,
 
 
 def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
-                               hit: Hit, cfg: RenderConfig,
-                               gen: torch.Generator):
+                               hit: Hit, cfg: RenderConfig, gen, mesh=None):
     """estimate_direct_lighting_hemisphere (part1_code.cpp:15-31): uniform
     hemisphere directions, the emission of whatever they hit."""
     n_lights = scene.lights.kind.shape[0]
@@ -166,7 +171,7 @@ def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
     fx, fy, fz = _frames(hit)
     wo = m3.to_local(fx, fy, fz, hit.w_out)
     shape = hit.t.shape
-    xi = _uniform(gen, (num,) + shape + (2,), hit.p)
+    xi = _uniform(on_axis(gen, 1), (num,) + shape + (2,), hit.p)
     theta = torch.acos(xi[..., 0])
     phi = 2.0 * PI * xi[..., 1]
     wi_l = torch.stack([torch.sin(theta) * torch.cos(phi),
@@ -179,7 +184,7 @@ def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
                                  device=hit.p.device))
     # only h2.hit and h2.bsdf_id are used; the emission gather reads the
     # live material table
-    h2, work = _trace(scene, bh, tab, rays, cfg, discrete=True)
+    h2, work = _trace(scene, bh, tab, rays, cfg, discrete=True, mesh=mesh)
     emit = bsdflib.emission(scene.bsdfs, h2.bsdf_id)
     f_val = bsdflib.evaluate(scene.bsdfs, hit.bsdf_id[None], wo[None], wi_l)
     contrib = emit * f_val * wi_l[..., 2:3]
@@ -188,19 +193,23 @@ def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
             work)
 
 
-def _direct(scene, bh, tab, hit, cfg, gen):
+def _direct(scene, bh, tab, hit, cfg, gen, mesh):
     if cfg.direct_hemisphere_sample:
-        return direct_lighting_hemisphere(scene, bh, tab, hit, cfg, gen)
-    return direct_lighting_importance(scene, bh, tab, hit, cfg, gen)
+        return direct_lighting_hemisphere(scene, bh, tab, hit, cfg, gen,
+                                          mesh)
+    return direct_lighting_importance(scene, bh, tab, hit, cfg, gen, mesh)
 
 
 def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
-                 rays: Rays, cfg: RenderConfig, gen: torch.Generator,
-                 tab: TraceTables):
+                 rays: Rays, cfg: RenderConfig, gen, tab: TraceTables,
+                 mesh=None):
     """est_radiance_global_illumination (part1_code.cpp:103-123) for a
     flat batch of camera rays, traced through `tab` =
-    `build_tables(scene, bh)`. Returns ((..., 3) radiance, TraceWork)."""
-    hit, work = _trace(scene, bh, tab, rays, cfg)
+    `build_tables(scene, bh)`, with uniforms from `gen` (a
+    `torch.Generator`, or a `LaneWindow` for a block of a larger batch).
+    With `mesh` every trace runs over its ranks. Returns ((..., 3)
+    radiance, TraceWork)."""
+    hit, work = _trace(scene, bh, tab, rays, cfg, mesh=mesh)
     L = torch.zeros_like(rays.d)
     if scene.env is not None:          # along the ORIGINAL direction
         L = torch.where(hit.hit[..., None], 0.0,
@@ -211,7 +220,7 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
         return torch.where(hit.hit[..., None], hit.n * 0.5 + 0.5, L), work
 
     if cfg.illum == Illum.DIRECT:
-        Ld, w = _direct(scene, bh, tab, hit, cfg, gen)
+        Ld, w = _direct(scene, bh, tab, hit, cfg, gen, mesh)
         return L + Ld, work + w
 
     md = cfg.max_ray_depth
@@ -227,7 +236,7 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
         """One path vertex: NEE, then optionally a (roulette) bounce."""
         delta = bsdflib.is_delta(scene.bsdfs, hit.bsdf_id)
         if not (first and cfg.illum == Illum.INDIRECT):
-            nee, w = _direct(scene, bh, tab, hit, cfg, gen)
+            nee, w = _direct(scene, bh, tab, hit, cfg, gen, mesh)
             L = L + torch.where((alive & ~delta)[..., None], beta * nee, 0.0)
             work = work + w
         if not do_bounce:
@@ -248,7 +257,8 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
         nxt = Rays(o=hit.p + cfg.ray_eps * wi_w, d=wi_w,
                    min_t=torch.zeros_like(hit.t),
                    max_t=torch.full_like(hit.t, math.inf))
-        h2, w = _trace(scene, bh, tab, _mask_rays(nxt, cont, bh), cfg)
+        h2, w = _trace(scene, bh, tab, _mask_rays(nxt, cont, bh), cfg,
+                       mesh=mesh)
         work = work + w
         cont = cont & h2.hit
         wt = smp.value * (torch.abs(smp.wi[..., 2:3])

@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rrt_tpu_torch.parallel.distributed import all_gather_lanes
+from rrt_tpu_torch.parallel.sharding import pad_to_multiple, shard_batch
 from rrt_tpu_torch.physics import kerr
 from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import EnvMap, _Tensors
@@ -160,12 +162,20 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
                  eye=(0.0, 3.0, 22.0), target=(0.0, 0.0, 0.0),
                  fov_deg=30.0, env: Optional[EnvMap] = None,
                  spp: int = 1, seed: int = 0, n_steps: int = 600,
-                 batch: int = 1 << 18, device="cuda") -> np.ndarray:
+                 batch: int = 1 << 18, device="cuda",
+                 sharding=None) -> np.ndarray:
     """Render the Kerr-disk scene on `device` to an (H, W, 3) HDR image
     (rows from the top), `batch` lanes at a time. With spp > 1 each sample
     jitters the pixels by uniforms from a `torch.Generator` seeded with
     `seed` (the JAX package draws threefry uniforms, so its spp > 1 images
-    agree with these only statistically)."""
+    agree with these only statistically).
+
+    `sharding` (a `parallel.sharding.LaneSharding`) splits every batch
+    over the ranks of its mesh, as the JAX package does
+    (rrt_tpu/render/kerr_scene.py:178-221): the batch is padded to a
+    multiple of the world (o with 0, d with 1.0), each rank marches its
+    block, and the blocks are gathered; every rank returns the image."""
+    mesh = sharding.mesh if sharding is not None else None
     device = torch.device(device)
     bh, disk = bh.to(device), disk.to(device)
     env = env.to(device) if env is not None else None
@@ -179,6 +189,16 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
         o, d = look_at_rays(eye, target, (0.0, 1.0, 0.0), fov_deg, width,
                             height, jitter, device)
         for i in range(0, n, batch):
-            acc[i:i + batch] += render_rays(o[i:i + batch], d[i:i + batch],
-                                            bh, disk, env, n_steps)
+            ob, db = o[i:i + batch], d[i:i + batch]
+            if mesh is None:
+                acc[i:i + batch] += render_rays(ob, db, bh, disk, env,
+                                                n_steps)
+                continue
+            m = ob.shape[0]
+            pad = pad_to_multiple(m, mesh.world) - m
+            ob = torch.cat([ob, ob.new_zeros((pad, 3))])
+            db = torch.cat([db, db.new_ones((pad, 3))])
+            part = render_rays(shard_batch(ob, mesh), shard_batch(db, mesh),
+                               bh, disk, env, n_steps)
+            acc[i:i + batch] += all_gather_lanes(part, mesh, m)
     return (acc / spp).reshape(height, width, 3).cpu().numpy()

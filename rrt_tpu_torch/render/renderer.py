@@ -26,11 +26,22 @@ pathtracer.cpp:180-202):
   * `stop()`, `stop_after=`, a `control` mapping (`--serve`'s POST
     /control) and Ctrl-C end the render between passes, saving the
     checkpoint.
+
+`sharding=` (a `parallel.sharding.LaneSharding`) splits every pass's k·n
+lanes over the ranks of its mesh, one process per device: each rank
+makes the camera rays of its block (`shard_bounds`), estimates them with
+the pass's draws windowed to its lanes (`LaneWindow`), and the blocks'
+radiance is gathered, so that every rank accumulates the same radiance
+as a single-process render, bit for bit. Decisions that end the pass loop
+are agreed by one all-reduce at each pass boundary; rank 0 alone writes
+checkpoints, previews and the image.
 """
 from __future__ import annotations
 
 import math
 import os
+import signal
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,8 +49,12 @@ import torch
 
 from rrt_tpu_torch.convert import black_hole_from_arrays
 from rrt_tpu_torch.ops.trace_kernel import build_tables
+from rrt_tpu_torch.parallel import distributed as pdist
+from rrt_tpu_torch.parallel.sharding import (LaneWindow, lane_rand,
+                                             shard_bounds)
 from rrt_tpu_torch.render import film
-from rrt_tpu_torch.render.integrator import _mask_rays, est_radiance
+from rrt_tpu_torch.render.integrator import (TraceWork, _mask_rays,
+                                             est_radiance)
 from rrt_tpu_torch.render.lights import is_delta_light
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import BlackHoleParams, SceneData
@@ -68,13 +83,17 @@ class Renderer:
     checkpoints, previews and cancellation, on the scene's device."""
 
     def __init__(self, scene: SceneData, camera: Camera, cfg: RenderConfig,
-                 device):
+                 device, sharding=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         if scene.device != self.device:
             raise ValueError(f"scene is on {scene.device}, renderer on "
                              f"{self.device}")
+        self.mesh = sharding.mesh if sharding is not None else None
+        if self.mesh is not None and self.mesh.device != self.device:
+            raise ValueError(f"this rank's device is {self.mesh.device}, "
+                             f"the renderer's {self.device}")
         self.scene = scene
         self.camera = camera
         self.cfg = cfg
@@ -89,6 +108,12 @@ class Renderer:
         self.samples_done = 0
         self.cancelled = False
         self._stop = False
+        self._shapes_seen = set()
+
+    @property
+    def writes(self) -> bool:
+        """Does this process write files (rank 0 of a sharded render)?"""
+        return self.mesh is None or self.mesh.rank == 0
 
     def samples_per_pass(self, n: int) -> int:
         cfg = self.cfg
@@ -103,25 +128,26 @@ class Renderer:
         reference's `stop()`, pathtracer.cpp:180-202)."""
         self._stop = True
 
-    def camera_rays(self, jitter, gen, k: int, region=None):
+    def camera_rays(self, jitter, gen, k: int, region=None, lanes=None):
         """The k·rw·rh camera rays of one pass over the window region =
         (x0, y0, rw, rh), the whole frame by default: pixel (x + jitter) /
-        size, sample-major; a jitter of one row is shared by every lane."""
+        size, sample-major; a jitter of one row is shared by every lane.
+        `lanes` = (lo, hi) makes only those lanes of the pass (a rank's
+        block; `gen` is then its `LaneWindow`)."""
         cfg, dev = self.cfg, self.device
         x0, y0, rw, rh = region or (0, 0, cfg.width, cfg.height)
-        ys, xs = torch.meshgrid(
-            y0 + torch.arange(rh, dtype=torch.float32, device=dev),
-            x0 + torch.arange(rw, dtype=torch.float32, device=dev),
-            indexing="ij")
-        px = torch.stack([xs, ys], dim=-1).reshape(-1, 2).repeat(k, 1)
+        lo, hi = lanes or (0, k * rw * rh)
+        pix = torch.arange(lo, hi, device=dev) % (rw * rh)
+        px = torch.stack([x0 + pix % rw, y0 + pix // rw],
+                         dim=-1).to(torch.float32)
         m = px.shape[0]
         if jitter.shape[0] != m:                 # centred single sample
             jitter = jitter[:1].expand(m, 2)
         xy = (px + jitter) / torch.tensor([cfg.width, cfg.height],
                                           dtype=torch.float32, device=dev)
         if cfg.thin_lens:
-            rnd_r = torch.rand((m,), generator=gen, device=dev)
-            rnd_th = torch.rand((m,), generator=gen, device=dev) * 2.0 * math.pi
+            rnd_r = lane_rand(gen, (m,), dev)
+            rnd_th = lane_rand(gen, (m,), dev) * 2.0 * math.pi
             return self.camera.generate_rays_thin_lens(xy, rnd_r, rnd_th)
         return self.camera.generate_rays(xy)
 
@@ -133,17 +159,24 @@ class Renderer:
         cfg, dev = self.cfg, self.device
         rad_sum, s1, s2, count, done = acc
         n = region[2] * region[3]
+        lo, hi = 0, k * n
+        if self.mesh is not None:      # this rank's block of the k·n lanes
+            lo, hi = shard_bounds(k * n, self.mesh.rank, self.mesh.world)
+            lo, hi = min(lo, k * n), min(hi, k * n)
+            gen = LaneWindow(gen, lo, hi, k * n)
         if cfg.ns_aa == 1:
             jitter = torch.full((n, 2), 0.5, device=dev)
         else:
-            jitter = torch.rand((k * n, 2), generator=gen, device=dev)
-        rays = self.camera_rays(jitter, gen, k, region)
+            jitter = lane_rand(gen, (hi - lo, 2), dev)
+        rays = self.camera_rays(jitter, gen, k, region, (lo, hi))
         active = ~done
         valid_k = torch.arange(k, device=dev) < n_valid
         lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
-        rays = _mask_rays(rays, lane_live, self.bh)
+        rays = _mask_rays(rays, lane_live[lo:hi], self.bh)
         L, work = est_radiance(self.scene, self.bh, rays, cfg, gen,
                                self.tables)
+        if self.mesh is not None:
+            L = pdist.all_gather_lanes(L, self.mesh, k * n)
         L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         L = torch.where(valid_k[:, None, None], L.reshape(k, n, 3), 0.0)
 
@@ -171,12 +204,18 @@ class Renderer:
 
     def save_checkpoint(self, path: str, acc, s: int, region):
         """Write the accumulators and the samples done to `path` (the JAX
-        package's npz keys), through a temporary file and `os.replace`."""
-        rad_sum, s1, s2, count, done = (a.cpu().numpy() for a in acc)
-        tmp = path + ".tmp.npz"
-        np.savez(tmp, rad_sum=rad_sum, s1=s1, s2=s2, count=count, done=done,
-                 s=np.int64(s), fingerprint=self._fingerprint(region))
-        os.replace(tmp, path)
+        package's npz keys), through a temporary file and `os.replace`. In
+        a sharded render rank 0 writes (every rank holds the same
+        accumulators) and the ranks wait for it."""
+        if self.writes:
+            rad_sum, s1, s2, count, done = (a.cpu().numpy() for a in acc)
+            tmp = path + ".tmp.npz"
+            np.savez(tmp, rad_sum=rad_sum, s1=s1, s2=s2, count=count,
+                     done=done, s=np.int64(s),
+                     fingerprint=self._fingerprint(region))
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            pdist.all_processes_done("checkpoint")
 
     def load_checkpoint(self, path: str, region):
         """The accumulators (on the renderer's device) and the samples done
@@ -230,47 +269,71 @@ class Renderer:
                    torch.zeros(n, device=dev),
                    torch.zeros(n, dtype=torch.int32, device=dev),
                    torch.zeros(n, dtype=torch.bool, device=dev))
-        tests = torch.zeros(2, dtype=torch.float64, device=dev)
-        calls = 0
+        work = TraceWork(torch.zeros(2, dtype=torch.float64, device=dev))
         self._stop = False
         cancelled = False
+        # a sharded render turns Ctrl-C into a stop at the next pass
+        # boundary, which every rank then agrees on: an interrupt inside a
+        # collective would leave the other ranks waiting in it
+        sigint = None
+        if self.mesh is not None \
+                and threading.current_thread() is threading.main_thread():
+            sigint = signal.signal(signal.SIGINT, lambda *_: self.stop())
         try:
             while s < cfg.ns_aa:
                 ks = min(k, cfg.ns_aa - s)
-                with self.timer.phase("passes"):
-                    new_acc, work = self._sample_pass(
+                first = (k, rw, rh) not in self._shapes_seen
+                with self.timer.phase("compile+first-pass" if first
+                                      else "passes"):
+                    new_acc, w = self._sample_pass(
                         acc, pass_generator(cfg.seed, s, 0, dev), s, ks, k,
                         region)
                     acc, s = new_acc, s + ks
-                    tests = tests + work.tests
-                    calls += work.calls
-                if cfg.adaptive and s % cfg.samples_per_batch == 0 \
-                        and bool(torch.all(acc[4])):
-                    break
-                if progress is not None:
-                    progress(s, cfg.ns_aa)
-                if checkpoint_path and checkpoint_every \
-                        and s // checkpoint_every > (s - ks) // checkpoint_every:
-                    self.save_checkpoint(checkpoint_path, acc, s, region)
-                pv_every, spp_cap = preview_every, None
-                if control is not None:
-                    if control.get("stop"):
-                        self._stop = True
-                    pv_every = control.get("preview_every", preview_every)
-                    spp_cap = control.get("spp_cap")
-                if preview_path and pv_every and s < cfg.ns_aa \
-                        and s // pv_every > (s - ks) // pv_every:
-                    self._write_preview(preview_path, acc, region)
-                if (stop_after is not None and s >= stop_after) \
+                    work = work + w
+                    if first:
+                        self._shapes_seen.add((k, rw, rh))
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                all_done = cfg.adaptive and s % cfg.samples_per_batch == 0 \
+                    and bool(torch.all(acc[4]))
+                stop = False
+                if not all_done:
+                    if progress is not None:
+                        progress(s, cfg.ns_aa)
+                    if checkpoint_path and checkpoint_every and \
+                            s // checkpoint_every > (s - ks) // checkpoint_every:
+                        self.save_checkpoint(checkpoint_path, acc, s, region)
+                    pv_every, spp_cap = preview_every, None
+                    if control is not None:
+                        if control.get("stop"):
+                            self._stop = True
+                        pv_every = control.get("preview_every", preview_every)
+                        spp_cap = control.get("spp_cap")
+                    if preview_path and pv_every and s < cfg.ns_aa \
+                            and s // pv_every > (s - ks) // pv_every \
+                            and self.writes:
+                        self._write_preview(preview_path, acc, region)
+                    stop = (stop_after is not None and s >= stop_after) \
                         or (spp_cap is not None and s >= int(spp_cap)) \
-                        or self._stop:
+                        or self._stop
+                if self.mesh is not None:
+                    all_done, stop = self._agree(all_done, stop)
+                if all_done:
+                    break
+                if stop:
                     cancelled = True
                     break
         except KeyboardInterrupt:
             # acc and s change together, so they hold the last whole pass
             cancelled = True
+        finally:
+            if sigint is not None:
+                signal.signal(signal.SIGINT, sigint)
         if cancelled and checkpoint_path:
             self.save_checkpoint(checkpoint_path, acc, s, region)
+        tests, calls = work.tests, work.calls
+        if self.mesh is not None:
+            tests = pdist.all_reduce_sum(tests, self.mesh)
         with self.timer.phase("passes"):        # waits for the device
             self.last_accumulators = tuple(a.cpu().numpy() for a in acc)
         rad_sum, count = self.last_accumulators[0], self.last_accumulators[3]
@@ -282,6 +345,15 @@ class Renderer:
         self.cancelled = cancelled
         hdr = rad_sum.reshape(rh, rw, 3) / np.maximum(count[..., None], 1)
         return hdr, count
+
+    def _agree(self, all_done: bool, stop: bool):
+        """The pass loop's two ways out, agreed by every rank: one
+        all-reduce (MAX) of the flags, so that a stop that one rank alone
+        saw ends every rank at the same pass."""
+        flags = torch.tensor([int(all_done), int(stop)], dtype=torch.int32,
+                             device=self.device)
+        all_done, stop = pdist.all_reduce_max(flags, self.mesh).tolist()
+        return bool(all_done), bool(stop)
 
     def _write_preview(self, path: str, acc, region):
         """The partial frame as a PNG, written whole (through a temporary
@@ -346,7 +418,11 @@ class Renderer:
             count[y:y + dy, x:x + dx] = count_cell
         else:
             hdr, count = self.render(progress=progress, **kw)
-        film.save_image(path, hdr)
-        base = path[:-4] if path.endswith(".png") else path
-        film.save_sampling_rate_image(base + "_rate.png", count, cfg.ns_aa)
+        if self.writes:
+            film.save_image(path, hdr)
+            base = path[:-4] if path.endswith(".png") else path
+            film.save_sampling_rate_image(base + "_rate.png", count,
+                                          cfg.ns_aa)
+        if self.mesh is not None:
+            pdist.all_processes_done("image")
         return hdr

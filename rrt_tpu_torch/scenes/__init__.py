@@ -3,7 +3,9 @@
 `CBOX_SPHERES` is a hand-written COLLADA file in the CGL profile: a diffuse
 Cornell box (floor at y = 0, two units across) with two diffuse spheres and
 one area light under the ceiling, in the shape of CBspheres_lambertian; the
-default black hole at (0, 1, 0) lies inside it. `uv_sphere_box` builds a
+default black hole at (0, 1, 0) lies inside it. `CBOX_MIRROR_GLASS` is
+the same box with a mirror sphere (left) and a glass sphere of index 1.5
+(right), in the shape of BASELINE config 3's CBspheres. `uv_sphere_box` builds a
 procedural scene of more than 4096 triangles, so that traversal runs over
 several triangle parts. `cbox_dense` is the bench's BVH-scale scene: the
 same box, light and camera with a 28,560-triangle mesh in place of the
@@ -19,6 +21,8 @@ from rrt_tpu_torch.io import collada
 
 CBOX_SPHERES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "cbox_spheres.dae")
+CBOX_MIRROR_GLASS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "cbox_mirror_glass.dae")
 
 
 def _uv_sphere(stacks, slices, center, radius):

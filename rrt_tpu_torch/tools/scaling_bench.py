@@ -1,0 +1,284 @@
+"""Lane-sharded forward throughput against the number of processes (the
+port of tools/scaling_bench.py). Three modes:
+
+  default: for each PxD of --configs (D, the devices a process drives,
+    is 1: the port runs one process per device), spawn P real processes
+    in one group over a localhost address, each running
+    `rrt_tpu_torch.parallel.worker` on a share of one --size² frame's
+    forward estimate (flat, 1 spp, -l 1, -m 2) on --device. On the CPU
+    the group is gloo. On cards it is NCCL while every process has a
+    card of its own, and gloo when P processes share fewer cards (NCCL
+    refuses two ranks on one card). Prints each config's lanes/s (the
+    frame's lanes over the slowest rank's warm forward) and its ratio to
+    1x1. Each process gets cores / P intra-op threads.
+
+  --card (alias --tpu): the sharding layer's own cost on one card. A world
+    of 1 over NCCL; the same forward (curved, 1 spp, -l 1, -m 2, --size²
+    lanes) unsharded, and sharded as the renderer shards a pass: the
+    rank's block of the lanes, draws windowed to it, the radiance
+    gathered. Sharded and unsharded should cost the same; a gap is the
+    padding, the windowed draws and the gather.
+
+  --breakdown: one JSON line of the current world (the RRT_* group, else
+    a world of 1) on --device: sharded_ms (the block forward),
+    traces_sharded_ms (the forward with every trace sharded,
+    `est_radiance(mesh=)`), device0_ms (unsharded), and the collectives
+    each forward makes (calls and bytes handed to them), which stand for
+    the JAX tool's census of collectives in the compiled program.
+    transfer_ms and sort_ms are null, each with its reason.
+
+Every mode runs on the card unless --device cpu is given, and refuses
+without one.
+
+Usage:
+  python -m rrt_tpu_torch.tools.scaling_bench [--size 64]
+      [--configs 1x1,2x1,4x1] [--device cpu]
+  python -m rrt_tpu_torch.tools.scaling_bench --card [--size 256]
+  python -m rrt_tpu_torch.tools.scaling_bench --breakdown [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn_workers(nproc: int, size: str, tmpdir: str, device="cpu",
+                  backend=None, checks="", timeout=1200, threads=None):
+    """Run `parallel.worker` as nproc processes of one group; returns each
+    rank's npz and output. Raises with a rank's output if it fails."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    outs = [os.path.join(tmpdir, f"w{nproc}_{i}.npz") for i in range(nproc)]
+    cmd = [sys.executable, "-m", "rrt_tpu_torch.parallel.worker"]
+    extra = ["--device", device] + (["--backend", backend] if backend
+                                    else []) + (["--checks", checks]
+                                                if checks else [])
+    procs = [subprocess.Popen(cmd + [str(i), str(nproc), str(port), outs[i],
+                                     size] + extra,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for i in range(nproc)]
+    logs = []
+    try:
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            logs.append(out.decode(errors="replace"))
+            if p.returncode != 0:
+                raise RuntimeError(f"worker {i} of {nproc} failed (rc "
+                                   f"{p.returncode}):\n{logs[-1][-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [dict(np.load(o)) for o in outs], logs
+
+
+def main_spawn(args):
+    configs = []
+    for c in args.configs.split(","):
+        p, d = c.strip().split("x")
+        if int(d) != 1:
+            raise SystemExit(f"config {c}: the port drives one device per "
+                             f"process, so D must be 1")
+        configs.append(int(p))
+    rows = []
+    cores = os.cpu_count() or 1
+    cards = (torch.cuda.device_count()
+             if torch.device(args.device).type == "cuda" else 0)
+    with tempfile.TemporaryDirectory() as td:
+        for nproc in configs:
+            backend = "nccl" if 0 < nproc <= cards else "gloo"
+            res, _ = spawn_workers(nproc, str(args.size), td,
+                                   device=args.device, backend=backend,
+                                   threads=max(1, cores // nproc))
+            lanes = args.size * args.size
+            dt = max(float(r["dt"]) for r in res)
+            rows.append((nproc, lanes, dt, lanes / dt))
+            print(f"{nproc} proc x 1 dev: {lanes} lanes in {dt:.4f}s "
+                  f"-> {lanes / dt:,.0f} lanes/s ({backend} on "
+                  f"{args.device})")
+    base = rows[0][3]
+    print("\n| procs | devices | lanes/s | vs 1x1 |")
+    print("|---|---|---|---|")
+    for nproc, lanes, dt, thr in rows:
+        print(f"| {nproc} | {nproc} | {thr:,.0f} | {thr / base:.2f}x |")
+    shared = ("its cores" if not cards else
+              f"its cores and {cards} card(s)")
+    print(f"\n({cores}-core host: the processes share {shared}, so this "
+          f"measures the federation's overhead, not hardware scaling)")
+
+
+def _join(device):
+    """The RRT_* group if the variables are set, else a world of 1 on a
+    free localhost port; returns this rank's lane mesh."""
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.parallel import sharding as sh
+    dev = torch.device(device)
+    if not pdist.initialize_from_env(device=dev.type):
+        pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev.type)
+    return sh.make_mesh(device)
+
+
+def forwards(size: int, mesh, curved: bool = True):
+    """The forward estimate of a size² frame (1 spp, -l 1, -m 2) three
+    ways: unsharded, sharded as the renderer shards a pass, and with
+    every trace sharded. Returns {name: fn}."""
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.parallel.sharding import LaneWindow, shard_bounds
+    from rrt_tpu_torch.parallel.worker import forward_setup
+    from rrt_tpu_torch.render.integrator import est_radiance
+    from rrt_tpu_torch.render.renderer import make_black_hole, pass_generator
+    from rrt_tpu_torch.ops.trace_kernel import build_tables
+    from rrt_tpu_torch.types import Rays
+    from rrt_tpu_torch.utils.config import BlackHoleConfig
+    scene, _, _, cfg, rays = forward_setup(size, size, mesh.device)
+    cfg = cfg.replace(black_hole=BlackHoleConfig(enabled=curved))
+    bh = make_black_hole(cfg, mesh.device)
+    tab = build_tables(scene, bh)
+    n = size * size
+    lo, hi = shard_bounds(n, mesh.rank, mesh.world)
+    lo, hi = min(lo, n), min(hi, n)
+
+    def gen():
+        return pass_generator(cfg.seed, 0, 0, mesh.device)
+
+    def unsharded():
+        return est_radiance(scene, bh, rays, cfg, gen(), tab)[0]
+
+    def sharded():
+        block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi],
+                     min_t=rays.min_t[lo:hi], max_t=rays.max_t[lo:hi])
+        L = est_radiance(scene, bh, block, cfg, LaneWindow(gen(), lo, hi, n),
+                         tab)[0]
+        return pdist.all_gather_lanes(L, mesh, n)
+
+    def traces_sharded():
+        return est_radiance(scene, bh, rays, cfg, gen(), tab, mesh=mesh)[0]
+    return dict(unsharded=unsharded, sharded=sharded,
+                traces_sharded=traces_sharded)
+
+
+def timeit(fn, device, reps: int = 5):
+    """(ms per call over reps warm calls, host clock ending in a device
+    sync; the last result)."""
+    sync = (lambda: torch.cuda.synchronize(device)) \
+        if torch.device(device).type == "cuda" else (lambda: None)
+    out = fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def card_gap(size: int) -> dict:
+    """The --card measurement: unsharded, sharded, sharded, unsharded
+    forwards of size² lanes on a world of 1 over NCCL (each 5 warm calls);
+    returns their ms and whether the results are equal. Leaves the group
+    it joined."""
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.utils.card import card_line
+    mesh = _join("cuda")
+    try:
+        fns = forwards(size, mesh)
+        res = {}
+        for name in ("unsharded", "sharded", "sharded", "unsharded"):
+            ms, out = timeit(fns[name], mesh.device)
+            res.setdefault(name, []).append((ms, out))
+        equal = torch.equal(res["sharded"][-1][1], res["unsharded"][-1][1])
+    finally:
+        pdist.shutdown()
+    return {"lanes": size * size, "world": mesh.world,
+            "backend": mesh.backend,
+            "unsharded_ms": [r[0] for r in res["unsharded"]],
+            "sharded_ms": [r[0] for r in res["sharded"]], "equal": equal,
+            "card": card_line()}
+
+
+def main_card(args):
+    gap = card_gap(args.size)
+    n = gap["lanes"]
+    for name in ("unsharded", "sharded"):
+        ms = gap[f"{name}_ms"]
+        print(f"{name}: {n} lanes in {min(ms):.3f} ms ({n / min(ms) * 1e3:,.0f}"
+              f" lanes/s; runs {', '.join(f'{m:.3f}' for m in ms)} ms) on "
+              f"{gap['world']} device(s) over {gap['backend']}")
+    print(json.dumps({"card_gap": gap}))
+    if not gap["equal"]:
+        raise SystemExit("the sharded forward differs from the unsharded")
+
+
+def main_breakdown(args):
+    from rrt_tpu_torch.parallel import distributed as pdist
+    mesh = _join(args.device)
+    fns = forwards(args.size, mesh)
+    out = {"world": mesh.world, "backend": mesh.backend,
+           "device": str(mesh.device), "lanes": args.size * args.size}
+    for name in ("sharded", "traces_sharded", "unsharded"):
+        ms, _ = timeit(fns[name], mesh.device)
+        pdist.COLLECTIVES.update(calls=0, bytes=0)
+        fns[name]()
+        key = "device0" if name == "unsharded" else name
+        out[f"{key}_ms"] = ms
+        out[f"{key}_collectives"] = dict(pdist.COLLECTIVES)
+    out["transfer_ms"] = None
+    out["transfer_reason"] = ("the trace tables are built once per render "
+                              "and stay on the device; no call re-ships "
+                              "them")
+    out["sort_ms"] = None
+    out["sort_reason"] = "the port has no lane sort"
+    print(json.dumps(out))
+    pdist.shutdown()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="rrt_tpu_torch.tools.scaling_bench")
+    ap.add_argument("--size", type=int, default=64)
+    ap.add_argument("--configs", default="1x1,2x1,4x1")
+    ap.add_argument("--card", "--tpu", action="store_true")
+    ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="the default mode's and --breakdown's device "
+                         "(default: cuda; --card always runs on the card)")
+    args = ap.parse_args(argv)
+    if (args.card or torch.device(args.device).type == "cuda") \
+            and not torch.cuda.is_available():
+        print("scaling_bench: CUDA is not available; pass --device cpu to "
+              "run on the CPU" + (" (--card needs a card)" if args.card
+                                  else ""), file=sys.stderr)
+        return 2
+    if args.card:
+        main_card(args)
+    elif args.breakdown:
+        main_breakdown(args)
+    else:
+        main_spawn(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -261,16 +261,45 @@ def load_variant(started):
 
 
 @contextlib.contextmanager
+def _swap(name: str, value):
+    """`ops.trace_kernel`'s attribute `name` is `value` inside the block:
+    the one switch of the trace's route that the tools use."""
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    saved = getattr(tk, name)
+    setattr(tk, name, value)
+    try:
+        yield
+    finally:
+        setattr(tk, name, saved)
+
+
 def using(fns):
     """`trace_rays` launches through another build's functions (from
     `load_variant`) inside the block."""
     from rrt_tpu_torch.ops import trace_kernel as tk
-    saved = tk._trace_fn()
-    tk._FN = fns
-    try:
-        yield
-    finally:
-        tk._FN = saved
+    tk._trace_fn()
+    return _swap("_FN", fns)
+
+
+def plain():
+    """Every trace inside the block goes through the plain version
+    (`trace_rays_reference`), on the card too: the tools' `--backend
+    plain`, the counterpart of the JAX package's XLA traversal."""
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    return _swap("trace_rays", tk.trace_rays_reference)
+
+
+def backend(name: str, device):
+    """The context of a tool's `--backend`: "auto" (the device's: the
+    kernel on a card, the plain version on the CPU), "kernel" (a card's
+    only) or "plain"."""
+    if name == "plain":
+        return plain()
+    if name == "kernel" and torch.device(device).type != "cuda":
+        raise ValueError("--backend kernel needs a CUDA device")
+    if name not in ("auto", "kernel"):
+        raise ValueError(f"backend {name!r}: auto, kernel or plain")
+    return contextlib.nullcontext()
 
 
 def render_launches(renderer, peak, launch=None, work=True):

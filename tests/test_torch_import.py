@@ -22,12 +22,18 @@ assert not bad, bad
 assert "torch" in sys.modules
 """
 
-# modules every import check must reach: the lifecycle's tools and Kerr
+# modules every import check must reach: the lifecycle's tools, Kerr, the
+# lane-sharded path and the last three tools
 MODULES = ("rrt_tpu_torch.cli", "rrt_tpu_torch.kerr_cli",
            "rrt_tpu_torch.physics.kerr", "rrt_tpu_torch.render.kerr_scene",
            "rrt_tpu_torch.render.renderer", "rrt_tpu_torch.utils.serve",
            "rrt_tpu_torch.utils.accel_walk", "rrt_tpu_torch.utils.accel_viz",
-           "rrt_tpu_torch.utils.ray_debug")
+           "rrt_tpu_torch.utils.ray_debug",
+           "rrt_tpu_torch.parallel.sharding",
+           "rrt_tpu_torch.parallel.distributed",
+           "rrt_tpu_torch.parallel.worker",
+           "rrt_tpu_torch.tools.scaling_bench",
+           "rrt_tpu_torch.tools.run_config", "rrt_tpu_torch.tools.kbench")
 
 
 def test_port_never_imports_jax():

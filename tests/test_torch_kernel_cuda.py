@@ -321,3 +321,34 @@ def test_r5prim_kernel_matches_plain(device, prim, n_iter):
         torch.testing.assert_close(k, r, rtol=1e-6, atol=0)
     if prim == "dynread7":
         assert place in ("shared", "device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occlusion", [False, True],
+                         ids=["closest-hit", "any-hit"])
+def test_sharded_trace_over_nccl_world_of_one(device, tmp_path, occlusion):
+    """trace(mesh=) over an NCCL group of one rank: one kernel launch for
+    the rank's block, the Hit fields and counters equal to the unsharded
+    trace bit for bit on an odd batch."""
+    import torch.distributed as dist
+    from rrt_tpu_torch.geometry import trace as ttrace
+    from rrt_tpu_torch.parallel import sharding as sh
+    scene, bh, lo, hi = _scene("cbox", device)
+    rays = _rays(16383, 5, device, lo, hi)
+    tab = tk.build_tables(scene, bh)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = sh.make_mesh(device)
+        assert (mesh.world, mesh.backend) == (1, "nccl")
+        h, st = ttrace.trace(scene, bh, rays, return_stats=True,
+                             occlusion=occlusion, tables=tab)
+        before = tk.LAUNCHES
+        hm, stm = ttrace.trace(scene, bh, rays, return_stats=True,
+                               occlusion=occlusion, tables=tab, mesh=mesh)
+        assert tk.LAUNCHES == before + 1
+    finally:
+        dist.destroy_process_group()
+    for f in ("hit", "t", "p", "n", "w_out", "prim_id", "bsdf_id"):
+        assert torch.equal(getattr(hm, f), getattr(h, f)), f
+    assert torch.equal(stm, st)

@@ -205,10 +205,19 @@ def test_kerr_cli_writes_a_png(tmp_path):
 
 def test_kerr_cli_refuses_sharded_and_missing_cuda(tmp_path, monkeypatch,
                                                    capsys):
+    """--sharded is no longer refused: without the RRT_* variables it
+    shards over a world of 1 and gives the unsharded image. A missing
+    card is still refused."""
     out = str(tmp_path / "kerr.png")
-    with pytest.raises(SystemExit) as e:
-        kerr_cli.main(["-f", out, "--sharded", "--device", "cpu"])
-    assert e.value.code == 2 and "ROADMAP.md" in capsys.readouterr().err
+    for name in ("RRT_COORDINATOR", "RRT_NUM_PROCESSES", "RRT_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    args = ["-r", "9", "7", "--steps", "60", "--device", "cpu"]
+    img = kerr_cli.main(["-f", out, "--sharded"] + args)
+    assert "lane-sharded over 1 device(s)" in capsys.readouterr().out
+    np.testing.assert_array_equal(
+        img, kerr_cli.main(["-f", str(tmp_path / "plain.png")] + args))
+    assert os.path.exists(out)
+    os.remove(out)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:
         kerr_cli.main(["-f", out, "-r", "8", "8"])

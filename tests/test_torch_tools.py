@@ -1,10 +1,12 @@
 """The port's host tools against the JAX package and over real HTTP: the
 live preview server (`utils/serve.py`), the accel walk over the trace
 kernel's own tables (`utils/accel_walk.py`), the accel dump
-(`utils/accel_viz.py`), the ray log (`utils/ray_debug.py`) and the CLI's
-dump flags."""
+(`utils/accel_viz.py`), the ray log (`utils/ray_debug.py`), the CLI's
+dump flags, `tools/run_config.py` (with the mirror and glass scene of its
+config 3) and `tools/kbench.py`."""
 import json
 import os
+import re
 import threading
 import urllib.error
 import urllib.request
@@ -19,6 +21,7 @@ from rrt_tpu.scene.build import load_scene as jax_load_scene
 from rrt_tpu.utils import accel_viz as jav
 from rrt_tpu.utils import accel_walk as jaw
 from rrt_tpu.utils import ray_debug as jrd
+from rrt_tpu.scene.build import load_scene as jax_load
 from rrt_tpu_torch import cli
 from rrt_tpu_torch.io.png import read_png
 from rrt_tpu_torch.ops import trace_kernel as tk
@@ -26,7 +29,8 @@ from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
 from rrt_tpu_torch.render import film
 from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
 from rrt_tpu_torch.scene.build import build_scene, load_scene
-from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense
+from rrt_tpu_torch.scenes import CBOX_MIRROR_GLASS, CBOX_SPHERES, cbox_dense
+from rrt_tpu_torch.tools import kbench, run_config, scaling_bench
 from rrt_tpu_torch.utils import accel_viz, ray_debug
 from rrt_tpu_torch.utils.accel_walk import AccelWalk
 from rrt_tpu_torch.utils.config import BlackHoleConfig, RenderConfig
@@ -307,3 +311,86 @@ def test_cli_writes_every_dump(tmp_path):
     assert (z["marched"] >= 1).all() and (z["marched"] <= 63).all()
     assert z["clusters"].max() > 0
     assert read_png(base + "_raylog_hit.png").shape == (12, 16, 4)
+
+
+def _jax_run_config_keys():
+    """The keys of the JAX tool's JSON line, read from its source."""
+    src = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "run_config.py")).read()
+    body = src[src.index("out = {"):]
+    body = body[:body.index("}\n")]
+    return set(re.findall(r'^\s+"(\w+)":', body, re.M))
+
+
+def test_run_config_prints_the_jax_keys(capsys):
+    keys = _jax_run_config_keys()
+    assert {"wall_s", "compile_s", "steady_s", "camera_rays_per_sec",
+            "mean_radiance"} <= keys
+    assert run_config.main([CBOX_SPHERES, "--size", "8", "8", "--spp", "2",
+                            "-m", "2", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert keys <= set(out), keys - set(out)
+    assert out["compile_s"] > 0 and out["steady_s"] > 0
+    assert out["camera_rays_per_sec"] > 0 and out["mean_radiance"] > 0
+    assert out["total_traces"] == 8 * 8 * 2 * (1 + 2 + 1)
+    assert out["trace_calls"] == 4 and out["device"] == "cpu"
+    assert out["config"] == "8x8 2spp l1 d2 curved"
+
+
+def test_run_config_refuses_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert run_config.main([CBOX_SPHERES]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+    assert kbench.main(["8"]) == 2
+    with pytest.raises(ValueError):
+        run_config.run([CBOX_SPHERES, "--backend", "kernel", "--device",
+                        "cpu"])
+
+
+@pytest.mark.parametrize("argv", [[], ["--card"], ["--breakdown"],
+                                  ["--card", "--device", "cpu"]])
+def test_scaling_bench_refuses_without_a_card(monkeypatch, capsys, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert scaling_bench.main(argv) == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_scaling_bench_spawns_gloo_ranks_on_the_cpu(capsys):
+    assert scaling_bench.main(["--size", "8", "--configs", "1x1,2x1",
+                               "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "1 proc x 1 dev: 64 lanes" in out and "(gloo on cpu)" in out
+    assert re.search(r"^\| 2 \| 2 \| [\d,]+ \| [\d.]+x \|$", out, re.M)
+
+
+def test_mirror_glass_scene_loads_the_same_in_both_packages():
+    """Config 3's scene: a mirror and a glass sphere, read alike by both
+    packages' COLLADA readers."""
+    js, _ = jax_load(CBOX_MIRROR_GLASS, 32, 32)
+    ts, _ = load_scene(CBOX_MIRROR_GLASS, "cpu", 32, 32)
+    for f in ("kind", "reflectance", "transmittance", "emission", "ior"):
+        np.testing.assert_array_equal(getattr(ts.bsdfs, f).numpy(),
+                                      np.asarray(getattr(js.bsdfs, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(ts.sph_bsdf.numpy(), np.asarray(js.sph_bsdf))
+    kinds = ts.bsdfs.kind.numpy()[ts.sph_bsdf.numpy()[:2]]
+    assert sorted(kinds.tolist()) == [1, 4]       # mirror, glass
+    assert np.asarray(js.bsdfs.ior).max() == pytest.approx(1.5)
+
+
+def test_kbench_prints_both_ray_sets(capsys):
+    assert kbench.main(["8", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("scene=cbox_dense tris=28608")
+    assert [ln.split(":")[0] for ln in lines[1:10]] == [
+        "coherent", "  measured", "  sorted", "incoherent", "  measured",
+        "  sorted", "bounce", "  measured", "  sorted"]
+    rows = json.loads(lines[-1])["kbench"]
+    assert [r["rays"] for r in rows] == ["coherent", "incoherent", "bounce"]
+    # the same rays in another lane order: the same hits and tests
+    assert rows[0]["hits"] == rows[1]["hits"] > 0
+    assert rows[0]["prim_tests_per_ray"] == rows[1]["prim_tests_per_ray"]
+    # one bounce from each camera hit; in the lane sort's order every set
+    # traces to the same Hit
+    assert rows[2]["n"] == rows[0]["hits"]
+    assert all(r["sorted_equal"] and r["sort_ms"] > 0 for r in rows)
