@@ -35,9 +35,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 4. the main path through the CLI: 256×256, 16 spp, -l 4, -m 5, curved
    global illumination on cuda, with every trace counted at the kernel;
    then a profile of the same render (warm walls, peak memory, device
-   time by kernel, and each trace launch's time beside its live-lane
-   share, chords and tests per lane and bound; with `--old`, the render's
-   ten launches of both kernels in turns); a first profile of the
+   time by kernel, host launches a pass, and each trace launch's time
+   beside its live-lane share, chords and tests per lane and bound, on a
+   renderer with eager passes, whose launches go through the Python
+   launcher; with `--old`, the render's ten launches of both kernels in
+   turns); a first profile of the
    BVH-scale render; a small normal-shaded render on the card checked
    against the CPU;
 4b. the differentiable path at full width: one `image_loss` gradient
@@ -59,7 +61,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    sun disk written as EXR, `-e` at the main path's settings in a
    temporary directory: launches equal to trace calls, a finite image
    brighter than the same render without `-e`, probability_debug.png
-   written there; its wall and a profile of `sample_L` and `sample_dir`;
+   written there; its wall and a profile of `sample_L` and `sample_dir`
+   (on eager passes, whose ranges hold their ops);
 4f. the render lifecycle on the main path (256×256, 16 spp, -l 4, -m 5,
    one sample a pass): a render checkpointed every 4 samples, stopped
    after 8 and resumed equals the uninterrupted render bit for bit; a
@@ -76,7 +79,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    kernel equals the plain traversal's on calm lanes, ≥ 99.5% overall;
 4i. Kerr, BASELINE config 5 at full width (1024×1024, spin 0.9, disk
    [3, 12], 600 RK4 steps, one batch of 1 << 20 lanes, 1 spp where config
-   5 has 16): the structure checks of tests/test_kerr.py, wall, rays/s,
+   5 has 16): the structure checks of tests/test_kerr.py, wall (in
+   captured blocks of steps, and step by step: equal bit for bit), rays/s,
    RK4 steps/s, peak memory, launches per RK4 step and the busy share;
    a 32×32, 300-step render on the card against the CPU (≥ 99% of lanes
    agree on the disk and escape masks, radiance to rtol 1e-3 there);
@@ -97,15 +101,32 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    `cbox_dense` and the mirror and glass box at 512² 64 spp, -m 5 -l 1:
    a finite, lit image, launches equal to trace calls; their JSON
    lines) and `kbench 20` on `cbox_dense` and the Cornell box;
+4m. the compiled pass: every renderer above captures each pass shape as a
+   CUDA graph and replays it (`Renderer._pass_fn`), and Kerr marches in
+   captured blocks (`kerr_scene.DiskMarch`); here each is held against the
+   eager path (`graphs=False`) bit for bit in accumulators, counters and
+   trace calls, on the primary cell, a tail pass, two `-p` cells of one
+   size, an adaptive render, the 16-pass lifecycle render stopped at 8
+   samples and resumed, `cbox_dense`, a flat and an env-lit render and
+   Kerr at 64×64 in blocks: walls in turns (5 each), host launches a
+   pass, busy share, peak memory, the graph pool and capture time
+   (`first_frame_phase(DIR, card)`, run alone from a script, times the
+   CLI's main path from fresh processes of an earlier checkout and of
+   this one in turns: the time to the first frame);
 5. the bench (`rrt_tpu_torch.bench`, in-process): probe, build, the
-   primary and the BVH-scale cell; its JSON line is printed;
+   primary and the BVH-scale cell (the median of 5 timed renders each);
+   its JSON line is printed;
 6. the cost-probe tool's path (`rrt_tpu_torch.tools.r5prim`): every probe
    timed at two iteration counts, beside its plain version;
 7. a JSON line of the kernels, then the ok line.
 
-Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 4j, 4k, 4l, 5, 6) is driven
+Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 4j, 4k, 4l, 4m, 5, 6) is driven
 with the kernels' launch counts set to 0 just before it and read just
-after: every kernel of the path must have launched in it.
+after: every kernel of the path must have launched in it. A replayed CUDA
+graph runs the trace kernel without its Python wrapper, so on the paths
+that replay (4f, 4l, 4m, 5) the trace kernel's count is the one the kernel
+keeps on the device (`trace_kernel.kernel_runs`: one for each run, launched
+or replayed), and it must equal the trace calls.
 
 Any failure raises, and the script exits non-zero without the ok line.
 """
@@ -252,14 +273,14 @@ def lifecycle_phase(dev, card, tmp, size=256, spp=16, cell=(64, 32, 96, 80)):
                        max_ray_depth=5, max_pass_lanes=size * size)
     scene, cam = load_scene(CBOX_SPHERES, dev, size, size)
     out = {}
-    tk.LAUNCHES = 0
+    tk.reset_counts()
     r1 = Renderer(scene, cam, cfg, dev)
     out["wall"], (full, full_count), out["peak_mib"] = _timed_call(
         dev, r1.render)
-    out["launches"] = tk.LAUNCHES
+    out["launches"] = tk.kernel_runs()      # the first pass's and replays
     if out["launches"] != r1.last_trace_calls or out["launches"] == 0:
-        raise AssertionError(f"lifecycle: {out['launches']} launches for "
-                             f"{r1.last_trace_calls} trace calls")
+        raise AssertionError(f"lifecycle: {out['launches']} kernel runs "
+                             f"for {r1.last_trace_calls} trace calls")
     # a second uninterrupted render: the first pays its shapes' first use
     out["warm_wall"], (again, _), _ = _timed_call(
         dev, Renderer(scene, cam, cfg, dev).render)
@@ -552,9 +573,11 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
     """BASELINE config 5 at full width on the card (1024×1024, spin 0.9,
     mass 1, disk [3, 12], 600 RK4 steps, one batch of 1 << 20 lanes; 1 spp
     where config 5 has 16), with the structure checks of
-    tests/test_kerr.py; a 32×32, 300-step render on the card against the
-    CPU; launches per RK4 step and the device's busy share from profiles
-    of 10- and 30-step renders."""
+    tests/test_kerr.py; the frame in captured blocks of steps (the
+    default) and step by step, equal bit for bit, both timed; a 32×32,
+    300-step render on the card against the CPU; launches per RK4 step and
+    the device's busy share from eager profiles of 10- and 30-step renders,
+    and from a 40-step march whose blocks are replayed."""
     import torch
     from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
     from rrt_tpu_torch.render import kerr_scene as K
@@ -578,21 +601,43 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
               "corners": bool(min(corners) > 0.0), "asymmetry": bool(
                   asym > 0.2)}
     n = size * size
+    # the same frame with the steps one by one (the march's blocks are
+    # CUDA graphs by default): equal bit for bit
+    ewall, eimg, _ = _timed_call(dev, lambda: K.render_image(
+        size, size, bh, disk, n_steps=n_steps, batch=1 << 20, device=dev,
+        graphs=False))
+    checks["blocks equal steps"] = bool(np.array_equal(img, eimg))
+    # launches a step and the busy share: eager at 10 and 30 steps; in
+    # captured blocks, 40 steps through a march whose blocks a first call
+    # captured
     prof = {}
     for steps in (10, 30):
         prof[steps] = profile_call(lambda: K.render_image(
-            size, size, bh, disk, n_steps=steps, batch=1 << 20, device=dev),
-            device=dev)
+            size, size, bh, disk, n_steps=steps, batch=1 << 20, device=dev,
+            graphs=False), device=dev)
     per_step = (prof[30].launches - prof[10].launches) / 20
     busy = prof[30].device_ms / (1e3 * prof[30].wall)
+    o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), 30.0, size, size, device=dev)
+    march = K.DiskMarch(bh, disk)
+    K.render_rays(o, d, bh, disk, n_steps=40, march=march)
+    gprof = profile_call(lambda: K.render_rays(
+        o, d, bh, disk, n_steps=40, march=march), device=dev)
+    gbusy = gprof.device_ms / (1e3 * gprof.wall)
+    del o, d, march
     print(f"[smoke] Kerr {size}x{size} 1spp {n_steps} RK4 steps, spin 0.9, "
-          f"disk [3, 12]: wall {wall:.2f} s, {n / wall:.4g} rays/s, "
+          f"disk [3, 12]: wall {wall:.2f} s in captured blocks of "
+          f"{K.MARCH_BLOCK} steps, {ewall:.2f} s step by step; "
+          f"{n / wall:.4g} rays/s, "
           f"{n * n_steps / wall:.4g} RK4 steps/s, peak {peak:.1f} MiB; "
           f"checks {checks} (centre max {c.max():.3g}, max "
           f"{img.max():.3g}, corners {[round(float(x), 4) for x in corners]}"
           f", asymmetry {asym:.3f}); {per_step:.1f} launches a step, "
-          f"30-step profile: wall {prof[30].wall:.3f} s, device "
-          f"{prof[30].device_ms:.1f} ms ({busy:.1%} busy) ({card})")
+          f"30-step eager profile: wall {prof[30].wall:.3f} s, device "
+          f"{prof[30].device_ms:.1f} ms ({busy:.1%} busy); 40 steps in "
+          f"blocks: wall {gprof.wall:.3f} s, device {gprof.device_ms:.1f} "
+          f"ms ({gbusy:.1%} busy), {gprof.host_launches / 40:.2f} host "
+          f"launches a step ({card})")
     print(f"[smoke] Kerr 30-step profile: {prof[30].report()}")
     if not all(checks.values()):
         raise AssertionError(f"Kerr structure checks {checks}")
@@ -614,10 +659,353 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
           f"within rtol 1e-3 there {close}")
     if agree.mean() < 0.99 or not close:
         raise AssertionError("Kerr: card and CPU disagree")
-    return dict(wall=wall, rays_per_s=n / wall,
+    return dict(wall=wall, eager_wall=ewall, rays_per_s=n / wall,
                 steps_per_s=n * n_steps / wall, peak_mib=peak,
-                launches_per_step=per_step, busy=busy,
+                launches_per_step=per_step, busy=busy, graph_busy=gbusy,
+                graph_host_launches_per_step=gprof.host_launches / 40,
                 agree=float(agree.mean()))
+
+
+def _spread(xs):
+    """median, min and max of a list, as a short string."""
+    return (f"median {float(np.median(xs)):.4f} s "
+            f"[{min(xs):.4f}, {max(xs):.4f}]")
+
+
+def graphs_phase(dev, card, tmp, reps=5):
+    """4m: each pass shape captured as a CUDA graph and replayed
+    (`Renderer._pass_fn`, `kerr_scene.DiskMarch`) against the eager path
+    (`graphs=False`), bit for bit in accumulators, counters and trace
+    calls, on the primary cell, a render with a tail pass, two `-p` cells
+    of one size (the second replays the first's graph), an adaptive render
+    across its batch boundaries, the 16-pass lifecycle render stopped at 8
+    samples and resumed, `cbox_dense`, a flat render, the env-lit render,
+    and Kerr at 64×64 (the march in blocks). For each: eager and graph
+    walls in turns, host launches a pass, the busy share, peak memory above
+    what the case started with, the graph pool's reserved memory and the
+    capture time."""
+    import gc
+    import torch
+    from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.render import kerr_scene as K
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.scene.build import build_scene, load_scene
+    from rrt_tpu_torch.scene.envmap import build_envmap
+    from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense
+    from rrt_tpu_torch.utils.config import BlackHoleConfig, RenderConfig
+    from rrt_tpu_torch.utils.profile import passes_run, profile_call
+
+    size = 256
+    base = RenderConfig(width=size, height=size, ns_aa=16, ns_area_light=4,
+                        max_ray_depth=5)
+    box = load_scene(CBOX_SPHERES, dev, size, size)
+    theta = (np.arange(256) + 0.5) / 256 * np.pi
+    phi = (np.arange(512) + 0.5) / 512 * 2 * np.pi
+    sky = (0.2 + 0.8 * np.cos(theta / 2) ** 2)[:, None, None] \
+        * np.array([0.4, 0.6, 1.0]) * np.ones((1, 512, 1))
+    sky[((theta[:, None] - 0.6) ** 2 + (phi[None, :] - 2.0) ** 2)
+        < 0.05 ** 2] = (2e3, 1.8e3, 1.4e3)
+    env = build_envmap(sky.astype(np.float32), dev)
+    lit = load_scene(CBOX_SPHERES, dev, size, size, env=env)
+    dense = build_scene(cbox_dense(), dev, 128, 128)
+    ckpt = os.path.join(tmp, "graphs.npz")
+
+    def state(r):
+        return [*r.last_accumulators, r.last_trace_tests,
+                np.array([r.last_trace_calls, r.samples_done])]
+
+    def render(**kw):
+        def run(r):
+            r.render(**kw)
+            return state(r), r.last_trace_calls
+        return run
+
+    def cells(r):
+        out, calls = [], 0
+        for x, y in ((64, 32), (0, 0)):
+            r.render(region=(x, y, 96, 80))
+            out += state(r)
+            calls += r.last_trace_calls
+        return out, calls
+
+    def stop_resume(r):
+        r.render(checkpoint_path=ckpt, checkpoint_every=4, stop_after=8)
+        calls = r.last_trace_calls
+        r.render(checkpoint_path=ckpt, resume=True)
+        os.remove(ckpt)
+        return list(r.last_accumulators), calls + r.last_trace_calls
+
+    cases = [
+        ("primary 256x256 16spp, one pass", box, base, render()),
+        ("tail pass: 10 spp at k=4", box, base.replace(
+            ns_aa=10, max_pass_lanes=4 * size * size), render()),
+        ("two -p cells 96x80, one graph", box, base.replace(ns_aa=4),
+         cells),
+        ("adaptive -a, batch 4 at k=2", box, base.replace(
+            ns_aa=16, adaptive=True, samples_per_batch=4,
+            max_pass_lanes=2 * size * size), render()),
+        ("lifecycle stopped at 8 and resumed", box, base.replace(
+            max_pass_lanes=size * size), stop_resume),
+        ("cbox_dense 128x128 1spp -l 1 -m 2", dense, RenderConfig(
+            width=128, height=128, ns_aa=1, ns_area_light=1,
+            max_ray_depth=2), render()),
+        ("flat", box, base.replace(black_hole=BlackHoleConfig(
+            enabled=False)), render()),
+        ("env-lit", lit, base, render()),
+    ]
+    out = {}
+    mib = 2 ** 20
+    for name, (scene, cam), cfg, run in cases:
+        t_case = time.perf_counter()
+        held = torch.cuda.memory_allocated(dev) / mib
+        rs = {g: Renderer(scene, cam, cfg, dev, graphs=g)
+              for g in (False, True)}
+        _, (ref, _), ref_peak = _timed_call(dev, lambda: run(rs[False]))
+
+        def counted(g):
+            """A render of rs[g]: (wall, accumulators, peak); the kernel's
+            own count of its runs must equal the trace calls, and a graph
+            render after the first two replays every pass, so that the
+            Python launcher launches nothing."""
+            tk.reset_counts()
+            w, (got, calls), peak = _timed_call(dev, lambda: run(rs[g]))
+            if tk.kernel_runs() != calls or calls == 0:
+                raise AssertionError(f"graphs, {name}: {tk.kernel_runs()} "
+                                     f"kernel runs for {calls} trace calls "
+                                     f"(graphs {g})")
+            if g and steady and tk.LAUNCHES:
+                raise AssertionError(f"graphs, {name}: {tk.LAUNCHES} eager "
+                                     f"launches in a replayed render")
+            return w, got, peak
+
+        # the graph renderer's first render runs each shape's first pass
+        # eagerly and captures a shape at its second pass; the second
+        # render captures the shapes that ran once
+        steady = False
+        first, got, cap_peak = counted(True)
+        equal = [all(np.array_equal(a, b) for a, b in zip(got, ref))]
+        second, got, peak = counted(True)
+        cap_peak = max(cap_peak, peak)
+        equal.append(all(np.array_equal(a, b) for a, b in zip(got, ref)))
+        steady = True
+        walls = {False: [], True: []}
+        for g in (False, True, True, False) * ((reps + 1) // 2):
+            if len(walls[g]) == reps:
+                continue
+            w, got, _ = counted(g)
+            walls[g].append(w)
+            equal.append(all(np.array_equal(a, b) for a, b in zip(got, ref)))
+        prof = {}
+        for g, r in rs.items():
+            before = passes_run(r)
+            prof[g] = profile_call(lambda: run(r), device=dev)
+            prof[g].passes = passes_run(r) - before
+        runners = rs[True]._pass_fns.values()
+        capture = sum(p.call.capture_seconds for p in runners)
+        replays = sum(p.call.replays for p in runners)
+        # the graphs' memory pool: what the graph renderer keeps reserved,
+        # the eager one and the cached blocks gone, against the same with
+        # the graph renderer gone too
+        del rs[False], runners, r
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved(dev) / mib
+        del rs
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool -= torch.cuda.memory_reserved(dev) / mib
+        ref_peak, cap_peak = ref_peak - held, cap_peak - held
+        row = dict(
+            equal=all(equal), eager=walls[False], graph=walls[True],
+            first_graph_render=first, second_graph_render=second,
+            capture_s=capture, replays=replays,
+            peak_mib=dict(eager=ref_peak, graph_first=cap_peak),
+            pool_mib=pool,
+            host_launches_per_pass={str(g): p.host_launches / max(
+                p.passes, 1) for g, p in prof.items()},
+            busy={str(g): p.device_ms / (1e3 * p.wall)
+                  for g, p in prof.items()},
+            device_ms={str(g): p.device_ms for g, p in prof.items()},
+            seconds=time.perf_counter() - t_case)
+        out[name] = row
+        print(f"[smoke] graphs, {name}: graph = eager bit for bit "
+              f"{row['equal']} ({len(equal)} graph renders); eager "
+              f"{_spread(walls[False])}, graph {_spread(walls[True])}; "
+              f"first graph render {first:.4f} s, second {second:.4f} s "
+              f"(capture {capture:.4f} s); host launches a pass eager "
+              f"{row['host_launches_per_pass']['False']:.1f}, graph "
+              f"{row['host_launches_per_pass']['True']:.1f}; busy eager "
+              f"{row['busy']['False']:.1%}, graph {row['busy']['True']:.1%}"
+              f" (device {prof[False].device_ms:.1f} / "
+              f"{prof[True].device_ms:.1f} ms); peak above the case's start "
+              f"eager {ref_peak:.1f} MiB, graph with capture "
+              f"{cap_peak:.1f} MiB; graph pool {pool:.1f} MiB reserved; "
+              f"case {row['seconds']:.1f} s ({card})")
+        if not row["equal"]:
+            raise AssertionError(f"graphs, {name}: the graph renders "
+                                 f"differ from the eager render")
+
+    # autograd inside a capture, as Kerr's `_rhs` uses it: the gradient of
+    # sum(x·x·x) through a CapturedCall (eager, then captured and replayed,
+    # then replayed) on new inputs each call, against eager autograd on the
+    # same inputs and against the formula 3·x·x (a rounding apart: autograd
+    # sums three products)
+    from rrt_tpu_torch.utils.graphs import CapturedCall
+    xs, gs = (torch.empty(4096, 3, device=dev) for _ in range(2))
+
+    def grad_of_cube(x, g):
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            (gx,) = torch.autograd.grad((xg * xg * xg).sum(), (xg,))
+        g.copy_(gx)
+
+    call, probe = CapturedCall(grad_of_cube, dev, name="a cube's grad"), []
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(3):
+        xs.copy_(torch.rand(4096, 3, device=dev, generator=gen))
+        call(xs, gs)
+        want = torch.empty_like(gs)
+        grad_of_cube(xs, want)
+        probe.append((bool(torch.equal(gs, want)),
+                      float((gs - 3 * xs * xs).abs().max())))
+    print(f"[smoke] graphs, autograd in a capture (grad of sum(x^3), 4096x3, "
+          f"calls eager / captured / replayed): equal to eager autograd "
+          f"{[e for e, _ in probe]}, max |grad - 3x^2| "
+          f"{[d for _, d in probe]} ({card})")
+    out["autograd probe"] = dict(equal=[e for e, _ in probe],
+                                 formula_max_abs=[d for _, d in probe])
+    if not all(e for e, _ in probe):
+        raise AssertionError("graphs: a captured autograd.grad differs from "
+                             "eager autograd")
+
+    # Kerr at 64x64: render_rays with a DiskMarch kept across calls (the
+    # first call runs each block eagerly, the second captures, the others
+    # replay), then render_image both ways
+    t_case = time.perf_counter()
+    ksize, steps = 64, 30        # a block of 20 and a block of 10
+    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, dev)
+    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, dev)
+    o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), 30.0, ksize, ksize, device=dev)
+    march = K.DiskMarch(bh, disk)
+    held = torch.cuda.memory_allocated(dev) / mib
+    _, ref, ref_peak = _timed_call(dev, lambda: K.render_rays(
+        o, d, bh, disk, n_steps=steps))
+    first, got, cap_peak = _timed_call(dev, lambda: K.render_rays(
+        o, d, bh, disk, n_steps=steps, march=march))
+    equal = [bool(torch.equal(got, ref))]
+    second, got, peak = _timed_call(dev, lambda: K.render_rays(
+        o, d, bh, disk, n_steps=steps, march=march))
+    equal.append(bool(torch.equal(got, ref)))
+    ref_peak, cap_peak = ref_peak - held, max(cap_peak, peak) - held
+    walls = {False: [], True: []}
+    for g in (False, True, True, False) * ((reps + 1) // 2):
+        if len(walls[g]) == reps:
+            continue
+        w, got, _ = _timed_call(dev, lambda: K.render_rays(
+            o, d, bh, disk, n_steps=steps, march=march if g else None))
+        walls[g].append(w)
+        equal.append(bool(torch.equal(got, ref)))
+    img = {g: K.render_image(ksize, ksize, bh, disk, n_steps=steps,
+                             device=dev, graphs=g) for g in (False, True)}
+    equal.append(bool(np.array_equal(img[False], img[True])))
+    prof = {g: profile_call(lambda: K.render_rays(
+        o, d, bh, disk, n_steps=steps, march=march if g else None),
+        device=dev) for g in (False, True)}
+    calls = march.calls.values()
+    row = dict(equal=all(equal), eager=walls[False], graph=walls[True],
+               first_graph_call=first, second_graph_call=second,
+               capture_s=sum(c.capture_seconds for c in calls),
+               peak_mib=dict(eager=ref_peak, graph_first=cap_peak),
+               host_launches_per_step={str(g): p.host_launches / steps
+                                       for g, p in prof.items()},
+               busy={str(g): p.device_ms / (1e3 * p.wall)
+                     for g, p in prof.items()},
+               device_ms={str(g): p.device_ms for g, p in prof.items()},
+               block=K.MARCH_BLOCK, seconds=time.perf_counter() - t_case)
+    out["kerr 64x64"] = row
+    print(f"[smoke] graphs, Kerr {ksize}x{ksize} {steps} steps in blocks "
+          f"of {K.MARCH_BLOCK}: graph = eager bit for bit {row['equal']} "
+          f"(render_rays and render_image); eager {_spread(walls[False])}, "
+          f"graph {_spread(walls[True])}; first graph call {first:.4f} s, "
+          f"second {second:.4f} s (capture {row['capture_s']:.4f} s); host launches a step "
+          f"eager {row['host_launches_per_step']['False']:.1f}, graph "
+          f"{row['host_launches_per_step']['True']:.2f}; busy eager "
+          f"{row['busy']['False']:.1%}, graph {row['busy']['True']:.1%}; "
+          f"peak above the case's start eager {ref_peak:.1f} MiB, graph "
+          f"with capture {cap_peak:.1f} MiB; case {row['seconds']:.1f} s "
+          f"({card})")
+    if not row["equal"]:
+        raise AssertionError("graphs, Kerr: the blocks differ from the "
+                             "step-by-step march")
+    return out
+
+
+# the CLI's main path in a fresh process of a checkout, from the call of
+# `cli.main` to the device sync after it (scene load, the render, the PNG):
+# the time to the first frame, imports and the kernel's build left out;
+# with the argument "eager", the CLI's renderer is built with graphs=False
+FIRST_FRAME = r'''
+import functools, json, os, sys, tempfile, time
+sys.path.insert(0, os.getcwd())
+import torch
+from rrt_tpu_torch import cli
+from rrt_tpu_torch.ops import build
+from rrt_tpu_torch.scenes import CBOX_SPHERES
+if sys.argv[1:] == ["eager"]:
+    cli.Renderer = functools.partial(cli.Renderer, graphs=False)
+build.load_library("trace")
+torch.zeros(1, device="cuda")
+with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+    t0 = time.perf_counter()
+    r = cli.main(["-f", os.path.join(tmp, "c.png"), "-r", "256", "256",
+                  "-s", "16", "-l", "4", "-m", "5", "--device", "cuda",
+                  CBOX_SPHERES])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+print(json.dumps({"wall": wall, "phases": dict(r.timer.phases)}))
+'''
+
+
+def first_frame_phase(parent, card, reps=4):
+    """The CLI's main path (256², 16 spp, -l 4 -m 5: one pass) from a
+    fresh process of `parent` (an earlier checkout), of this checkout, and
+    of this checkout with an eager renderer (`graphs=False`), in turns
+    (forward, then backward; `reps` each, after one untimed run of each
+    that builds its kernels): the time to the first frame,
+    `FIRST_FRAME`'s wall, and the renderer's phases."""
+    import subprocess
+    variants = {"parent": (os.path.abspath(parent), []), "this": (ROOT, []),
+                "this, eager": (ROOT, ["eager"])}
+
+    def once(name):
+        cwd, extra = variants[name]
+        res = subprocess.run([sys.executable, "-c", FIRST_FRAME, *extra],
+                             cwd=cwd, capture_output=True, text=True,
+                             timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"first frame, {name}: "
+                                 f"{res.stderr[-2000:]}")
+        return json.loads(res.stdout.strip().splitlines()[-1])
+
+    for name in variants:
+        once(name)
+    runs = {name: [] for name in variants}
+    order = list(variants) + list(variants)[::-1]
+    for name in order * ((reps + 1) // 2):
+        if len(runs[name]) < reps:
+            runs[name].append(once(name))
+    out = {name: dict(wall=[r["wall"] for r in rs],
+                      first_pass=[r["phases"]["compile+first-pass"]
+                                  for r in rs])
+           for name, rs in runs.items()}
+    print("[smoke] first frame through the CLI (256x256 16spp -l 4 -m 5, "
+          "one pass) in turns: " + "; ".join(
+              f"{name} {_spread(o['wall'])} (first pass "
+              f"{_spread(o['first_pass'])})" for name, o in out.items())
+          + f" ({card})")
+    return out
 
 
 def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
@@ -654,7 +1042,9 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
         cfg = RenderConfig(width=size, height=size, ns_aa=spp,
                            ns_area_light=4, max_ray_depth=5)
         scene, cam = load_scene(CBOX_SPHERES, dev, size, size)
-        plain_r = Renderer(scene, cam, cfg, dev)
+        # both eager: the sharded path cannot be captured, and the walls
+        # measure the sharding layer's cost
+        plain_r = Renderer(scene, cam, cfg, dev, graphs=False)
         shard_r = Renderer(scene, cam, cfg, dev, sharding=sharding)
         plain_r.render()
         tk.LAUNCHES = 0
@@ -1113,7 +1503,7 @@ def main(argv=None):
 
     # ---- 4. the main path
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        tk.LAUNCHES = 0
+        tk.reset_counts()
         t0 = time.perf_counter()
         renderer = cli.main(["-f", os.path.join(tmp, "cbox.png"), "-r", "256",
                              "256", "-s", "16", "-l", "4", "-m", "5",
@@ -1123,8 +1513,12 @@ def main(argv=None):
         launches = tk.LAUNCHES
         if not os.path.getsize(os.path.join(tmp, "cbox.png")):
             raise AssertionError("main path wrote an empty PNG")
-    if launches != renderer.last_trace_calls or launches == 0:
-        raise AssertionError(f"{launches} kernel launches for "
+    # the render's one pass runs eagerly (a shape is captured at its
+    # second pass): the wrapper's launches, the kernel's own runs and the
+    # trace calls agree
+    if not launches == tk.kernel_runs() == renderer.last_trace_calls > 0:
+        raise AssertionError(f"{launches} kernel launches, "
+                             f"{tk.kernel_runs()} kernel runs for "
                              f"{renderer.last_trace_calls} trace calls")
     rad_sum, _, _, count, _ = renderer.last_accumulators
     hdr = rad_sum / np.maximum(count[:, None], 1)
@@ -1146,8 +1540,12 @@ def main(argv=None):
     for line in prof.report().splitlines():
         print(f"[smoke] profile: {line}")
     # each trace launch of a further render: its time (CUDA events around
-    # it) beside its work; with --old, both kernels' renders in turns
-    _, render_rows = render_launches(renderer, peak)
+    # it) beside its work; with --old, both kernels' renders in turns. An
+    # eager renderer: a replayed pass calls no Python launcher to time
+    eager = Renderer(renderer.scene, renderer.camera, renderer.cfg, dev,
+                     graphs=False)
+    eager.render()                       # warm, as the profile above was
+    _, render_rows = render_launches(eager, peak)
     for i, w in enumerate(render_rows):
         print(f"[smoke] render launch {i + 1}: "
               f"{'any-hit' if w['anyhit'] else 'closest-hit'}, {w['lanes']} "
@@ -1160,7 +1558,7 @@ def main(argv=None):
         render_turns = {"old": [], "new": []}
         for name in ("old", "new", "new", "old"):
             wall_, rows_ = render_launches(
-                renderer, peak, old_trace if name == "old" else None,
+                eager, peak, old_trace if name == "old" else None,
                 work=False)
             render_turns[name].append(dict(
                 wall=wall_, launches=[r_["ms"] for r_ in rows_]))
@@ -1174,7 +1572,9 @@ def main(argv=None):
     bprof = profile_render(brend, reps=3)
     for line in bprof.report().splitlines():
         print(f"[smoke] bvh profile: {line}")
-    for i, w in enumerate(render_launches(brend, peak)[1]):
+    beager = Renderer(dense, dense_cam, bcfg, dev, graphs=False)
+    beager.render()
+    for i, w in enumerate(render_launches(beager, peak)[1]):
         print(f"[smoke] bvh render launch {i + 1}: "
               f"{'any-hit' if w['anyhit'] else 'closest-hit'}, {w['lanes']} "
               f"lanes, {w['ms']:.3f} ms, {work_line(w)} ({card})")
@@ -1339,14 +1739,21 @@ def main(argv=None):
     if not np.isfinite(ehdr).all() or not env_mean > mean_rad:
         raise AssertionError(f"env-lit mean radiance {env_mean}, without "
                              f"-e {mean_rad}")
-    eprof = profile_call(erend.render,
+    # the ranges' split needs eager passes: a replayed pass runs no Python,
+    # so its record_function ranges hold no ops
+    eager_env = Renderer(erend.scene, erend.camera, erend.cfg, dev,
+                         graphs=False)
+    eager_env.render()
+    eprof = profile_call(eager_env.render,
                          ranges=("envmap.sample_L", "envmap.sample_dir"),
                          device=dev)
+    del eager_env
     print(f"[smoke] env-lit main path 256x256 16spp -l 4 -m 5 -e "
           f"{eh}x{ew}: wall {env_wall:.2f} s, mean radiance {env_mean:.5f} "
           f"(without -e {mean_rad:.5f}), {env_launches} kernel launches = "
           f"trace calls ({card})")
-    print(f"[smoke] env render profile: {eprof.report()} ({card})")
+    print(f"[smoke] env render profile (eager passes): {eprof.report()} "
+          f"({card})")
     # sample_L alone on the lanes of one NEE sample of the main path
     # (256x256 at 16 spp); with --old-envmap, an earlier sample_L in turns
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1385,12 +1792,22 @@ def main(argv=None):
         two = two_process_phase(dev, card, tmp)
     tools_out = tools_phase(dev, card)
 
+    # ---- 4m. captured passes and march blocks against the eager path
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        graphs_out = graphs_phase(dev, card, tmp)
+
     # ---- 5. the bench, in-process: the probe kernel and the trace kernel
-    tk.LAUNCHES, tprobe.LAUNCHES = 0, 0
-    bench_out, diag = bench.run(dev)
-    bench_launches = {"trace_kernel": tk.LAUNCHES, "probe": tprobe.LAUNCHES}
-    print(f"[smoke] bench json: {json.dumps(bench_out)}")
+    tk.reset_counts()
+    tprobe.LAUNCHES = 0
+    bench_out, diag, bench_calls = bench.run(dev)
+    # the trace kernel's runs, replays included
+    bench_launches = {"trace_kernel": tk.kernel_runs(),
+                      "probe": tprobe.LAUNCHES}
+    if bench_launches["trace_kernel"] != bench_calls:
+        raise AssertionError(f"bench: {bench_launches['trace_kernel']} "
+                             f"trace kernel runs for {bench_calls} calls")
     print(f"[smoke] bench {diag}")
+    print(f"[smoke] bench json: {json.dumps(bench_out)}")
     if min(bench_launches.values()) == 0:
         raise AssertionError(f"bench launches {bench_launches}")
     for key in ("value", "bvh_camera_rays_per_sec", "mfu_lower_bound_pct",
@@ -1412,6 +1829,7 @@ def main(argv=None):
         lifecycle=life, serve=served, dumps=dumps, kerr=kerr_out)))
     print(f"[smoke] phases 4j-4l: " + json.dumps(dict(
         sharded=sharded, two_ranks=two, tools=tools_out)))
+    print(f"[smoke] phase 4m: " + json.dumps(graphs_out))
 
     # ---- 7. result lines
     ms, plain_ms = times["closest-hit"]

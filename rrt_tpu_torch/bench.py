@@ -10,16 +10,18 @@ this order; any failure raises:
    (`build_cached` when a library of the same hash was already built);
 3. the primary cell: the in-repo Cornell box (`scenes.CBOX_SPHERES`),
    256×256, 16 spp, 4 area-light samples, depth 5, seed 0, default black
-   hole; one warm-up render, then one timed render ending in a device sync;
+   hole; two warm-up renders (the first runs the pass eagerly, the second
+   captures it as a CUDA graph), then `TIMED_RENDERS` timed renders, each
+   ending in a device sync; the headline is their median;
 4. the BVH-scale cell: `scenes.cbox_dense()` (28,608 triangle rows, 14
-   parts, clusters of 8), 128×128, 1 spp, 1 light sample, depth 2; one
-   warm-up render, then one timed render.
+   parts, clusters of 8), 128×128, 1 spp, 1 light sample, depth 2; timed
+   the same way.
 
 It prints one JSON line on stdout with the JAX bench's keys where they
 still mean something on this card (`vs_baseline` is gone: its denominator
 was measured on another host; `bunny_camera_rays_per_sec` is
-`bvh_camera_rays_per_sec`, since the scene is not the bunny), and wall
-times and phase timers on stderr.
+`bvh_camera_rays_per_sec`, since the scene is not the bunny), after a line
+on stderr with every timed wall (their spread) and the phase timers.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ BVH = dict(width=128, height=128, ns_aa=1, ns_area_light=1, max_ray_depth=2,
 FLOPS_PER_GEODESIC_STEP = 58
 FLOPS_PER_TRACE = 40
 FLOPS_PER_CAMERA_RAY = 200
+# timed renders of each cell; the headline takes their median
+TIMED_RENDERS = 5
 
 
 def useful_flops(st: RenderStats) -> float:
@@ -91,20 +95,33 @@ def bench_result(primary: RenderStats, bvh: RenderStats,
     }
 
 
-def _timed_render(renderer, device):
-    """One warm-up render, then one timed render ending in a device
-    sync. Returns (hdr, stats with the timed wall)."""
-    renderer.render()
+def _timed_render(renderer, device, reps: int = TIMED_RENDERS):
+    """Two warm-up renders (the pass's eager run and its capture), then
+    `reps` timed renders, each ending in a device sync. Returns (hdr,
+    stats with the median wall, the walls, the trace calls of all the
+    renders)."""
+    calls = 0
+    for _ in range(2):
+        renderer.render()
+        calls += renderer.last_trace_calls
     torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    hdr, _ = renderer.render()
-    torch.cuda.synchronize(device)
-    return hdr, renderer.stats(time.perf_counter() - t0)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        hdr, _ = renderer.render()
+        torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - t0)
+        calls += renderer.last_trace_calls
+    return hdr, renderer.stats(float(np.median(walls))), walls, calls
+
+
+def _walls(walls) -> str:
+    return ",".join(f"{w:.4f}" for w in walls)
 
 
 def run(device):
     """The four phases on the CUDA `device`. Returns (the JSON object,
-    the stderr diagnostics)."""
+    the stderr diagnostics, the trace calls of the renders)."""
     from rrt_tpu_torch.ops import build
     from rrt_tpu_torch.ops.probe import probe
     from rrt_tpu_torch.render.renderer import Renderer
@@ -125,23 +142,23 @@ def run(device):
     cfg = RenderConfig(**PRIMARY)
     scene, cam = load_scene(CBOX_SPHERES, device, cfg.width, cfg.height)
     r = Renderer(scene, cam, cfg, device)
-    hdr, st = _timed_render(r, device)
+    hdr, st, walls, calls = _timed_render(r, device)
 
     bcfg = RenderConfig(**BVH)
     bscene, bcam = build_scene(cbox_dense(), device, bcfg.width, bcfg.height)
     br = Renderer(bscene, bcam, bcfg, device)
-    _, bst = _timed_render(br, device)
+    _, bst, bwalls, bcalls = _timed_render(br, device)
 
     card = card_line()
     peak = fp32_peak_flops(device, max_sm_clock_mhz())
     out = bench_result(st, bst, float(np.mean(hdr)), build_seconds,
                        build_cached, peak, card)
-    diag = (f"# wall={st.wall_seconds:.4f}s "
-            f"bvh_wall={bst.wall_seconds:.4f}s "
+    diag = (f"# wall={st.wall_seconds:.4f}s (median of {_walls(walls)}) "
+            f"bvh_wall={bst.wall_seconds:.4f}s (median of {_walls(bwalls)}) "
             f"mean_radiance={out['mean_radiance']:.4f} device={device} "
             f"({card}) phases[{r.timer.report()}] "
-            f"bvh_phases[{br.timer.report()}]")
-    return out, diag
+            f"bvh_phases[{br.timer.report()}] trace_calls={calls + bcalls}")
+    return out, diag, calls + bcalls
 
 
 def main() -> int:
@@ -149,9 +166,9 @@ def main() -> int:
         print("bench: no CUDA device; the bench measures a card",
               file=sys.stderr)
         return 2
-    out, diag = run(torch.device("cuda", torch.cuda.current_device()))
+    out, diag, _ = run(torch.device("cuda", torch.cuda.current_device()))
+    print(diag, file=sys.stderr, flush=True)
     print(json.dumps(out))
-    print(diag, file=sys.stderr)
     return 0
 
 

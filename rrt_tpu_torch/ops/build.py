@@ -34,7 +34,7 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 
 def _declare_trace(lib):
     lib.rrt_trace.argtypes = ([_vp] * 4 + [_i] + [_vp] * 6 + [_i] * 9
-                              + [_vp] * 11 + [_i, _vp])
+                              + [_vp] * 12 + [_i, _vp])
     lib.rrt_trace.restype = _i
     lib.rrt_error_string.argtypes = [_i]
     lib.rrt_error_string.restype = ctypes.c_char_p

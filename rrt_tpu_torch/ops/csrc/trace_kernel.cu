@@ -695,8 +695,12 @@ __device__ __forceinline__ bool take_rays(unsigned need, bool in_step) {
 
 template <bool Curved, bool Occlusion, int Layout, bool Coop>
 __global__ void __launch_bounds__(threads<Coop>(), 1)
-    trace_kernel(Rays rays, Tables tb, int n_seg, Out out, int* next) {
+    trace_kernel(Rays rays, Tables tb, int n_seg, Out out, int* next,
+                 unsigned long long* runs) {
   constexpr bool TabS = Layout != DEVICE_ALL;
+  // the launch's own count of its runs: a CUDA graph's replay runs the
+  // kernel without its launcher, and this count still sees it
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(runs, 1ull);
   extern __shared__ float4 smem[];
   const View v = stage_tables<Layout, Coop>(tb, smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -853,6 +857,7 @@ struct Launch {
   int n_seg;
   Out out;
   int *next, device;
+  unsigned long long* runs;
   size_t smem;
   cudaStream_t stream;
   int* info;
@@ -883,7 +888,7 @@ cudaError_t launch(const Launch& l) {
   l.info[1] = ii.blocks;
   l.info[4] = threads<Coop>();
   kernel<<<grid, threads<Coop>(), l.smem, l.stream>>>(l.rays, l.tb, l.n_seg,
-                                                      l.out, l.next);
+                                                      l.out, l.next, l.runs);
   return cudaGetLastError();
 }
 
@@ -912,7 +917,8 @@ int ceil_log2(int v) {
 
 // Launches the trace of n rays on `stream`; returns a cudaError_t code.
 // Every pointer is device memory of the layouts above; `next` is one int
-// set to 0, the launch's ray queue. `info` receives the grid, the blocks
+// set to 0, the launch's ray queue; `runs` is a counter in device memory
+// that every run of the kernel adds one to. `info` receives the grid, the blocks
 // per SM, the table layout (0: every table in shared memory, 1: triangles
 // in device memory and the rest in shared memory, 2: every table in device
 // memory), the shared-memory bytes of a block, the threads of a block and
@@ -926,7 +932,8 @@ extern "C" int rrt_trace(const float* o, const float* d, const float* min_t,
                          bool* hit, bool* absd,
                          float* t, int* prim, int* seg, float* seg_o,
                          float* seg_d, int* nisect, int* ncull, int* next,
-                         int* info, int device, void* stream) {
+                         unsigned long long* runs, int* info, int device,
+                         void* stream) {
   if (device < 0 || device >= MAX_DEVICES || spp < 1 || spp > 32 ||
       (cs_k != 8 && cs_k != 16))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -977,6 +984,7 @@ extern "C" int rrt_trace(const float* o, const float* d, const float* min_t,
                  Out{hit, absd, t, prim, seg, seg_o, seg_d, nisect, ncull},
                  next,
                  device,
+                 runs,
                  smem,
                  static_cast<cudaStream_t>(stream),
                  info};

@@ -61,8 +61,13 @@ P_BH, P_R, P_DT, P_COS, P_SIN = 0, 3, 4, 5, 6
 P_GLO, P_GHI, P_SLO, P_SHI = 7, 10, 13, 16
 N_PARAMS = 20
 
-# kernel launches made by `trace_rays`; read by tests and chip_smoke.py
+# kernel launches made by `trace_rays` (a launch recorded into a CUDA
+# graph is not one, and a replay of it goes round `trace_rays`); read by
+# tests and chip_smoke.py
 LAUNCHES = 0
+# device index -> (1,) int64 counter in device memory that the kernel adds
+# one to at each of its runs, launched or replayed (`kernel_runs`)
+_RUNS: dict = {}
 # the last launch's grid, block width, resident blocks per SM, traversal
 # ("per-lane" or "cooperative") and where its box and triangle tables were
 # read from ("shared" memory or "device" memory)
@@ -533,6 +538,33 @@ def _trace_fn():
     return _FN
 
 
+def kernel_runs() -> int:
+    """The trace kernel's runs since the last `reset_counts`, as the
+    kernel counted them on the device: its launches and the launches that
+    CUDA graphs replayed. Waits for the devices."""
+    return sum(int(c.item()) for c in _RUNS.values())
+
+
+def reset_counts():
+    """`LAUNCHES` and every device's `kernel_runs` counter set to 0."""
+    global LAUNCHES
+    LAUNCHES = 0
+    for c in _RUNS.values():
+        c.zero_()
+
+
+def _runs_counter(dev) -> torch.Tensor:
+    """The device's run counter, made on its first eager launch: made
+    inside a capture, it would be a graph's buffer that a replay resets."""
+    c = _RUNS.get(dev.index)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the trace kernel's first launch on a device "
+                               "cannot be inside a CUDA graph capture")
+        c = _RUNS[dev.index] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return c
+
+
 def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
     global LAUNCHES, LAST_LAUNCH
     n, dev = o.shape[0], o.device
@@ -571,6 +603,7 @@ def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
     if n == 0:
         return out
     fn, err = _trace_fn()
+    runs = _runs_counter(dev)
     queue = torch.zeros(1, dtype=i32, device=dev)   # the launch's ray queue
     info = (ctypes.c_int * 6)()
     p = lambda a: a.data_ptr()
@@ -580,12 +613,13 @@ def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
             tab.n_tri_rows, tab.sph.shape[0], tab.n_seg, int(tab.curved),
             int(occlusion), p(out.hit), p(out.absd), p(out.t), p(out.prim), p(out.seg),
             p(out.seg_o), p(out.seg_d), p(out.nisect), p(out.ncull),
-            p(queue), ctypes.addressof(info), dev.index,
+            p(queue), p(runs), ctypes.addressof(info), dev.index,
             torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError("trace kernel launch failed: "
                            + err(rc).decode())
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     boxes, tris = _LAYOUTS[info[2]]
     LAST_LAUNCH = dict(grid=info[0], threads=info[4],
                        blocks_per_sm=info[1], tables_in=boxes,
@@ -601,7 +635,8 @@ def trace_rays(tab: TraceTables, o, d, min_t, max_t,
 
     A CPU tensor goes to `trace_rays_reference`. A CUDA tensor goes to the
     hand-written kernel `ops/csrc/trace_kernel.cu`, built on first use;
-    anything else raises. Each kernel launch adds one to `LAUNCHES`."""
+    anything else raises. Each kernel launch adds one to `LAUNCHES`, and
+    each run of the kernel, replays included, one to `kernel_runs()`."""
     if o.device.type == "cpu":
         return trace_rays_reference(tab, o, d, min_t, max_t, occlusion)
     if o.device.type != "cuda":

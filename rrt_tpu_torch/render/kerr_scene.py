@@ -13,8 +13,14 @@ shaded against a thin, opaque, Keplerian disk in the equatorial plane:
     along its final momentum (`scene/envmap.sample_dir`), or a soft
     gradient without one.
 
-The JAX package runs this as one `lax.scan` over RK4 steps; here it is a
-Python loop of PyTorch ops over the steps, with a per-lane adaptive step.
+The JAX package runs this as one `lax.scan` over RK4 steps, jitted per
+batch (rrt_tpu/render/kerr_scene.py:186); here it is a Python loop of
+PyTorch ops over the steps, with a per-lane adaptive step. On a card
+(`render_image` unsharded, unless `graphs=False`) the loop runs through a
+`DiskMarch`: blocks of `MARCH_BLOCK` steps, each captured once per batch
+shape as a CUDA graph (autograd's `_rhs` included) and replayed, plus a
+block of the remaining steps; the march state is the graphs' static
+buffers. The march equals the step-by-step loop bit for bit.
 """
 from __future__ import annotations
 
@@ -30,6 +36,12 @@ from rrt_tpu_torch.parallel.sharding import pad_to_multiple, shard_batch
 from rrt_tpu_torch.physics import kerr
 from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import EnvMap, _Tensors
+from rrt_tpu_torch.utils.graphs import CapturedCall
+
+# march steps a captured block holds: a 1024² step launches ~840 kernels,
+# so a block of 20 is a graph of ~17,000 nodes, and 600 steps (BASELINE
+# config 5) or 300 make whole blocks
+MARCH_BLOCK = 20
 
 
 @dataclasses.dataclass
@@ -69,53 +81,121 @@ def _doppler_g(x, y, p, mass, a):
     return 1.0 / torch.clamp(denom, min=1e-3)
 
 
+def _disk_step(st, acc, hit_disk, bh: kerr.KerrParams, disk: DiskParams,
+               r_escape: float):
+    """One march step against the disk: returns (state, acc, hit_disk)."""
+    rh = bh.horizon_radius
+    # adaptive step: fine near the hole, coarse far away
+    r = torch.sqrt(kerr._kerr_r2(st.x[..., 0], st.x[..., 1], st.x[..., 2],
+                                 bh.spin))
+    dlam = torch.clamp(0.18 * (r - 0.5 * rh), 0.02, 2.0)
+    frozen = st.captured | st.escaped | hit_disk
+    dlam = torch.where(frozen, 0.0, dlam)
+    st2, (xa, xb) = kerr.march_step(st, bh, dlam, r_escape)
+    # disk crossing: the chord's z changes sign (hole frame)
+    za, zb = xa[..., 2], xb[..., 2]
+    crossing = (za * zb < 0.0) & ~frozen
+    s = za / torch.where(torch.abs(za - zb) > 1e-20, za - zb, 1.0)
+    cx = xa[..., 0] + s * (xb[..., 0] - xa[..., 0])
+    cy = xa[..., 1] + s * (xb[..., 1] - xa[..., 1])
+    cr = torch.sqrt(_safe(cx * cx + cy * cy))
+    on_disk = crossing & (cr >= disk.r_in) & (cr <= disk.r_out)
+    profile = (disk.r_in / cr) ** disk.q
+    if disk.beaming:
+        boost = _doppler_g(cx, cy, st2.p, bh.mass, bh.spin) ** 4
+    else:
+        boost = torch.ones_like(cr)
+    radiance = disk.emission * (profile * boost)[..., None]
+    acc = torch.where((on_disk & ~hit_disk)[..., None], radiance, acc)
+    return st2, acc, hit_disk | on_disk
+
+
 def trace_disk(o_world, d_world, bh: kerr.KerrParams, disk: DiskParams,
-               n_steps: int = 600, r_escape: float = 45.0):
+               n_steps: int = 600, r_escape: float = 45.0, march=None):
     """March world rays through the Kerr metric against the disk. Returns
-    (final march state, disk radiance (..., 3), hit-disk mask)."""
+    (final march state, disk radiance (..., 3), hit-disk mask). `march`
+    (a `DiskMarch` of these parameters) runs the steps in captured
+    blocks; without it they run one by one."""
     st = kerr.make_state(o_world, d_world, bh)
     acc = torch.zeros(st.pt.shape + (3,), dtype=o_world.dtype,
                       device=o_world.device)
     hit_disk = torch.zeros(st.pt.shape, dtype=torch.bool,
                            device=o_world.device)
-    rh = bh.horizon_radius
+    if march is not None:
+        if not (march.bh is bh and march.disk is disk
+                and march.r_escape == r_escape):
+            raise ValueError("the DiskMarch was made for another hole, "
+                             "disk or escape radius")
+        return march(st, acc, hit_disk, n_steps)
     for _ in range(n_steps):
-        # adaptive step: fine near the hole, coarse far away
-        r = torch.sqrt(kerr._kerr_r2(st.x[..., 0], st.x[..., 1],
-                                     st.x[..., 2], bh.spin))
-        dlam = torch.clamp(0.18 * (r - 0.5 * rh), 0.02, 2.0)
-        frozen = st.captured | st.escaped | hit_disk
-        dlam = torch.where(frozen, 0.0, dlam)
-        st2, (xa, xb) = kerr.march_step(st, bh, dlam, r_escape)
-        # disk crossing: the chord's z changes sign (hole frame)
-        za, zb = xa[..., 2], xb[..., 2]
-        crossing = (za * zb < 0.0) & ~frozen
-        s = za / torch.where(torch.abs(za - zb) > 1e-20, za - zb, 1.0)
-        cx = xa[..., 0] + s * (xb[..., 0] - xa[..., 0])
-        cy = xa[..., 1] + s * (xb[..., 1] - xa[..., 1])
-        cr = torch.sqrt(_safe(cx * cx + cy * cy))
-        on_disk = crossing & (cr >= disk.r_in) & (cr <= disk.r_out)
-        profile = (disk.r_in / cr) ** disk.q
-        if disk.beaming:
-            boost = _doppler_g(cx, cy, st2.p, bh.mass, bh.spin) ** 4
-        else:
-            boost = torch.ones_like(cr)
-        radiance = disk.emission * (profile * boost)[..., None]
-        acc = torch.where((on_disk & ~hit_disk)[..., None], radiance, acc)
-        hit_disk = hit_disk | on_disk
-        st = st2
+        st, acc, hit_disk = _disk_step(st, acc, hit_disk, bh, disk, r_escape)
     return st, acc, hit_disk
+
+
+class DiskMarch:
+    """`trace_disk`'s steps in blocks of `MARCH_BLOCK`, each block a CUDA graph
+    captured once per (batch shape, steps) and replayed: the counterpart of
+    the JAX package's jitted Kerr batch (rrt_tpu/render/kerr_scene.py:186).
+    The march state (x, p, pt, captured, escaped), the disk radiance and
+    the hit mask are the graphs' static buffers, one set per batch shape,
+    updated in place; every block reads them and writes them back. The
+    first run of a block runs eagerly, the second is captured and
+    replayed, later runs replay; a block run once (the remainder of a
+    single march) is never captured. The graphs share one memory pool and
+    go away with the march."""
+
+    def __init__(self, bh: kerr.KerrParams, disk: DiskParams,
+                 r_escape: float = 45.0):
+        self.bh, self.disk, self.r_escape = bh, disk, r_escape
+        self._pool = None
+        self._buffers = {}   # batch shape -> static buffers
+        self.calls = {}      # (batch shape, steps) -> CapturedCall
+
+    def _run(self, bufs, steps: int):
+        x, p, pt, cap, esc, acc, hit = bufs
+        st = kerr.MarchState(x, p, pt, cap, esc)
+        for _ in range(steps):
+            st, acc, hit = _disk_step(st, acc, hit, self.bh, self.disk,
+                                      self.r_escape)
+        for buf, v in zip(bufs, (*st, acc, hit)):
+            if v is not buf:
+                buf.copy_(v)
+
+    def __call__(self, st, acc, hit_disk, n_steps: int):
+        shape = tuple(st.pt.shape)
+        bufs = self._buffers.get(shape)
+        if bufs is None:
+            bufs = self._buffers[shape] = [torch.empty_like(v) for v in
+                                           (*st, acc, hit_disk)]
+        for buf, v in zip(bufs, (*st, acc, hit_disk)):
+            buf.copy_(v)
+        dev = acc.device
+        blocks = [MARCH_BLOCK] * (n_steps // MARCH_BLOCK)
+        if n_steps % MARCH_BLOCK:
+            blocks.append(n_steps % MARCH_BLOCK)
+        for steps in blocks:
+            call = self.calls.get((shape, steps))
+            if call is None:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                call = self.calls[(shape, steps)] = CapturedCall(
+                    DiskMarch._run, dev, self._pool,
+                    name=f"a Kerr march block of {steps} steps on {shape}")
+            call(self, bufs, steps)
+        out = [b.clone() for b in bufs]
+        return kerr.MarchState(*out[:5]), out[5], out[6]
 
 
 def render_rays(o_world, d_world, bh: kerr.KerrParams, disk: DiskParams,
                 env: Optional[EnvMap] = None, n_steps: int = 600,
-                r_escape: float = 45.0):
+                r_escape: float = 45.0, march=None):
     """Radiance (..., 3) of world rays through the Kerr metric: the disk
     where it is hit first, the environment (or the soft gradient) where
-    the ray escapes, black where it is captured."""
+    the ray escapes, black where it is captured. `march`: as
+    `trace_disk`'s."""
     with torch.no_grad():
         st, acc, hit_disk = trace_disk(o_world, d_world, bh, disk, n_steps,
-                                       r_escape)
+                                       r_escape, march)
         p_world = torch.stack([st.p[..., 0], st.p[..., 2], -st.p[..., 1]],
                               dim=-1)
         p_world = p_world / torch.linalg.vector_norm(p_world + 1e-20, dim=-1,
@@ -163,7 +243,7 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
                  fov_deg=30.0, env: Optional[EnvMap] = None,
                  spp: int = 1, seed: int = 0, n_steps: int = 600,
                  batch: int = 1 << 18, device="cuda",
-                 sharding=None) -> np.ndarray:
+                 sharding=None, graphs: Optional[bool] = None) -> np.ndarray:
     """Render the Kerr-disk scene on `device` to an (H, W, 3) HDR image
     (rows from the top), `batch` lanes at a time. With spp > 1 each sample
     jitters the pixels by uniforms from a `torch.Generator` seeded with
@@ -174,10 +254,19 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
     over the ranks of its mesh, as the JAX package does
     (rrt_tpu/render/kerr_scene.py:178-221): the batch is padded to a
     multiple of the world (o with 0, d with 1.0), each rank marches its
-    block, and the blocks are gathered; every rank returns the image."""
+    block, and the blocks are gathered; every rank returns the image.
+
+    `graphs`: march in captured blocks (`DiskMarch`); the default on a
+    card without `sharding`. The sharded march stays eager, as the
+    renderer's sharded passes do."""
     mesh = sharding.mesh if sharding is not None else None
     device = torch.device(device)
+    can = device.type == "cuda" and mesh is None
+    if graphs and not can:
+        raise ValueError("CUDA graphs need a CUDA device and no sharding")
     bh, disk = bh.to(device), disk.to(device)
+    march = DiskMarch(bh, disk) if (can if graphs is None else graphs) \
+        else None
     env = env.to(device) if env is not None else None
     n = width * height
     acc = torch.zeros((n, 3), dtype=torch.float32, device=device)
@@ -192,7 +281,7 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
             ob, db = o[i:i + batch], d[i:i + batch]
             if mesh is None:
                 acc[i:i + batch] += render_rays(ob, db, bh, disk, env,
-                                                n_steps)
+                                                n_steps, march=march)
                 continue
             m = ob.shape[0]
             pad = pad_to_multiple(m, mesh.world) - m

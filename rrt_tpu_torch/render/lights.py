@@ -70,9 +70,9 @@ def sample_light(lights: LightTable, light_idx: int, p: torch.Tensor,
 
     if kind == LIGHT_SPOT:
         # the reference's SpotLight::sample_L is a stub: zero radiance
-        up = torch.tensor([0.0, 1.0, 0.0], dtype=p.dtype, device=p.device)
-        return LightSample(radiance=torch.zeros_like(p),
-                           wi=torch.broadcast_to(up, p.shape),
+        up = torch.zeros_like(p)
+        up[..., 1] = 1.0      # filled on the device: no host copy in a pass
+        return LightSample(radiance=torch.zeros_like(p), wi=up,
                            dist=full(math.inf), pdf=full(1.0))
 
     if kind == LIGHT_AREA:

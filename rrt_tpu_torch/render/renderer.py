@@ -8,10 +8,21 @@ runs the same k with its surplus samples masked. Adaptive sampling
 (part1_code.cpp:147-159) freezes a pixel once 1.96·σ/√n ≤ tol·mean at a
 batch boundary; a frozen pixel's lanes end at once.
 
-Every pass draws its random numbers from its own `torch.Generator`,
-seeded from (cfg.seed, first sample index of the pass, band index), so a
-render is reproducible on one device. The port renders each region as one
-band (index 0).
+Every pass draws its random numbers from a `torch.Generator` seeded from
+(cfg.seed, first sample index of the pass, band index) (`pass_seed`), so
+a render is reproducible on one device. The port renders each region as
+one band (index 0).
+
+One pass runner serves every pass of a shape (k, rw, rh)
+(`Renderer._pass_fn`, named after the JAX package's): the accumulators
+are its static buffers, updated in place, and what changes from pass to
+pass (the first sample index, the number of live samples, the region
+origin, the generator's seed) is written into device tensors and the
+runner's generator before the pass. On CUDA the shape's first pass runs
+eagerly, its second is captured once as a CUDA graph and replayed, and
+every later pass of the shape replays it (`utils/graphs.CapturedCall`);
+`graphs=False` runs it eagerly, as the CPU and the sharded path always
+do.
 
 The render lifecycle (the reference's `stop()`/`continueRaytracing`,
 pathtracer.cpp:180-202):
@@ -53,12 +64,12 @@ from rrt_tpu_torch.parallel import distributed as pdist
 from rrt_tpu_torch.parallel.sharding import (LaneWindow, lane_rand,
                                              shard_bounds)
 from rrt_tpu_torch.render import film
-from rrt_tpu_torch.render.integrator import (TraceWork, _mask_rays,
-                                             est_radiance)
+from rrt_tpu_torch.render.integrator import _mask_rays, est_radiance
 from rrt_tpu_torch.render.lights import is_delta_light
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import BlackHoleParams, SceneData
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
+from rrt_tpu_torch.utils.graphs import CapturedCall
 from rrt_tpu_torch.utils.stats import PhaseTimer, RenderStats
 
 
@@ -69,13 +80,86 @@ def make_black_hole(cfg: RenderConfig, device) -> Optional[BlackHoleParams]:
     return black_hole_from_arrays(b.position, b.radius, b.delta_theta, device)
 
 
+def pass_seed(seed: int, sample_idx: int, band: int) -> int:
+    """The seed of one (pass, band)'s generator, derived from the render
+    seed."""
+    state = np.random.SeedSequence([seed, sample_idx, band]).generate_state(2)
+    return int(state[0]) << 32 | int(state[1])
+
+
 def pass_generator(seed: int, sample_idx: int, band: int, device
                    ) -> torch.Generator:
-    """The generator of one (pass, band), derived from the render seed."""
-    state = np.random.SeedSequence([seed, sample_idx, band]).generate_state(2)
+    """The generator of one (pass, band)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]) << 32 | int(state[1]))
+    gen.manual_seed(pass_seed(seed, sample_idx, band))
     return gen
+
+
+class PassRunner:
+    """The pass of one shape (k samples of an rw×rh window), the
+    counterpart of the JAX package's jitted `_sample_pass`
+    (rrt_tpu/render/renderer.py:85-123).
+
+    Static buffers: the accumulators `acc` = (radiance sum (n,3), s1, s2,
+    count, done) and the trace counters `tests` (2,) f64, which every pass
+    updates in place (the JAX package donates them, `donate_argnums=(0,)`);
+    a render, checkpoint or resume copies into and out of them. Dynamic
+    inputs, device tensors the pass reads: `sample_idx` (the pass's first
+    sample), `n_valid` (its live samples; the tail pass has fewer than k)
+    and the region origin `x0`, `y0`, so that the tail pass, the cells of
+    one size and the adaptive batch boundaries all share one pass. The
+    pass draws from `gen`, re-seeded with `pass_seed` before every pass.
+
+    With `graphs` the pass is a `CapturedCall` sharing the renderer's
+    graph pool: the first pass of the shape runs eagerly, the second is
+    captured and replayed, and every later pass replays the graph; a shape
+    that runs one pass is never captured."""
+
+    def __init__(self, device, k: int, rw: int, rh: int, graphs: bool,
+                 pool=None):
+        n = rw * rh
+        self.k, self.rw, self.rh = k, rw, rh
+        z = lambda dtype=torch.float32, shape=(n,): torch.zeros(
+            shape, dtype=dtype, device=device)
+        self.acc = (z(shape=(n, 3)), z(), z(), z(torch.int32),
+                    z(torch.bool))
+        self.tests = z(torch.float64, (2,))
+        self.sample_idx = z(torch.int32, ())
+        self.n_valid = z(torch.int32, ())
+        self.x0, self.y0 = z(torch.int64, ()), z(torch.int64, ())
+        self.gen = torch.Generator(device=device)
+        self.passes = 0
+        self.call = (CapturedCall(Renderer._sample_pass, device, pool,
+                                  (self.gen,), name=f"the pass (k, rw, rh) "
+                                  f"= {(k, rw, rh)}") if graphs else None)
+
+    @property
+    def warm(self) -> bool:
+        """Has the shape's first pass (and, with graphs, its capture)
+        run, so that its next pass is a steady one?"""
+        return self.passes > 0 if self.call is None \
+            else self.call.graph is not None
+
+    def reset(self, acc=None):
+        """Start a render: the accumulators from `acc` (zeros without it),
+        the counters at zero."""
+        for buf, a in zip(self.acc, acc or (None,) * 5):
+            buf.zero_() if a is None else buf.copy_(a)
+        self.tests.zero_()
+
+    def run(self, renderer, seed: int, s: int, ks: int, x0: int, y0: int
+            ) -> int:
+        """One pass from sample s with ks live samples at origin (x0, y0);
+        returns its trace calls."""
+        self.sample_idx.fill_(s)
+        self.n_valid.fill_(ks)
+        self.x0.fill_(x0)
+        self.y0.fill_(y0)
+        self.gen.manual_seed(pass_seed(seed, s, 0))
+        self.passes += 1
+        if self.call is None:
+            return renderer._sample_pass(self)
+        return self.call(renderer, self)
 
 
 class Renderer:
@@ -83,7 +167,7 @@ class Renderer:
     checkpoints, previews and cancellation, on the scene's device."""
 
     def __init__(self, scene: SceneData, camera: Camera, cfg: RenderConfig,
-                 device, sharding=None):
+                 device, sharding=None, graphs: Optional[bool] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -100,15 +184,30 @@ class Renderer:
         self.bh = make_black_hole(cfg, self.device)
         # the traversal's tables, built once for every trace of the render
         self.tables = build_tables(scene, self.bh)
+        # passes are captured as CUDA graphs on a card, unless the caller
+        # asks for eager passes; the sharded path's collectives (gloo, and
+        # the host sync of its per-pass MAX all-reduce) cannot be captured
+        can = self.device.type == "cuda" and self.mesh is None
+        if graphs and not can:
+            raise ValueError("CUDA graphs need a CUDA device and an "
+                             "unsharded renderer")
+        self.graphs = can if graphs is None else bool(graphs)
+        self._pool = None
+        self._pass_fns = {}   # (k, rw, rh) -> PassRunner
+        # the frame size that camera rays divide by, made once on the
+        # device (a host copy inside a pass would break its capture)
+        self._frame_size = torch.tensor([cfg.width, cfg.height],
+                                        dtype=torch.float32,
+                                        device=self.device)
         self.timer = PhaseTimer()
         self.last_accumulators = None
         self.last_sample_count = None
         self.last_trace_tests = None
         self.last_trace_calls = 0
+        self.last_warm_samples = 0
         self.samples_done = 0
         self.cancelled = False
         self._stop = False
-        self._shapes_seen = set()
 
     @property
     def writes(self) -> bool:
@@ -128,12 +227,27 @@ class Renderer:
         reference's `stop()`, pathtracer.cpp:180-202)."""
         self._stop = True
 
+    def _pass_fn(self, k: int, rw: int, rh: int) -> PassRunner:
+        """The runner of every pass of shape (k, rw, rh), made on first
+        use: one captured graph serves the tail pass, every cell of the
+        size and both sides of an adaptive batch boundary. A renderer's
+        graphs share one memory pool and go away with it."""
+        runner = self._pass_fns.get((k, rw, rh))
+        if runner is None:
+            if self.graphs and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            runner = PassRunner(self.device, k, rw, rh, self.graphs,
+                                self._pool)
+            self._pass_fns[(k, rw, rh)] = runner
+        return runner
+
     def camera_rays(self, jitter, gen, k: int, region=None, lanes=None):
         """The k·rw·rh camera rays of one pass over the window region =
         (x0, y0, rw, rh), the whole frame by default: pixel (x + jitter) /
         size, sample-major; a jitter of one row is shared by every lane.
-        `lanes` = (lo, hi) makes only those lanes of the pass (a rank's
-        block; `gen` is then its `LaneWindow`)."""
+        The origin (x0, y0) may be ints or 0-d integer device tensors (a
+        pass runner's). `lanes` = (lo, hi) makes only those lanes of the
+        pass (a rank's block; `gen` is then its `LaneWindow`)."""
         cfg, dev = self.cfg, self.device
         x0, y0, rw, rh = region or (0, 0, cfg.width, cfg.height)
         lo, hi = lanes or (0, k * rw * rh)
@@ -143,22 +257,23 @@ class Renderer:
         m = px.shape[0]
         if jitter.shape[0] != m:                 # centred single sample
             jitter = jitter[:1].expand(m, 2)
-        xy = (px + jitter) / torch.tensor([cfg.width, cfg.height],
-                                          dtype=torch.float32, device=dev)
+        xy = (px + jitter) / self._frame_size
         if cfg.thin_lens:
             rnd_r = lane_rand(gen, (m,), dev)
             rnd_th = lane_rand(gen, (m,), dev) * 2.0 * math.pi
             return self.camera.generate_rays_thin_lens(xy, rnd_r, rnd_th)
         return self.camera.generate_rays(xy)
 
-    def _sample_pass(self, acc, gen, sample_idx: int, n_valid: int, k: int,
-                     region):
-        """Trace k samples of every pixel of the window `region` in one
-        batch of k·n lanes (n = rw·rh) and accumulate the first n_valid of
-        them into acc = (radiance sum (n,3), s1, s2, count, done)."""
-        cfg, dev = self.cfg, self.device
-        rad_sum, s1, s2, count, done = acc
-        n = region[2] * region[3]
+    def _sample_pass(self, p: PassRunner) -> int:
+        """Trace p.k samples of every pixel of p's window in one batch of
+        k·n lanes (n = rw·rh) and add the first p.n_valid of them into p's
+        accumulators, in place. Reads only p's tensors and generator, so
+        that one capture serves every pass of the shape. Returns the
+        number of trace calls."""
+        cfg, dev, k = self.cfg, self.device, p.k
+        rad_sum, s1, s2, count, done = p.acc
+        n = p.rw * p.rh
+        gen = p.gen
         lo, hi = 0, k * n
         if self.mesh is not None:      # this rank's block of the k·n lanes
             lo, hi = shard_bounds(k * n, self.mesh.rank, self.mesh.world)
@@ -168,9 +283,10 @@ class Renderer:
             jitter = torch.full((n, 2), 0.5, device=dev)
         else:
             jitter = lane_rand(gen, (hi - lo, 2), dev)
-        rays = self.camera_rays(jitter, gen, k, region, (lo, hi))
+        rays = self.camera_rays(jitter, gen, k, (p.x0, p.y0, p.rw, p.rh),
+                                (lo, hi))
         active = ~done
-        valid_k = torch.arange(k, device=dev) < n_valid
+        valid_k = torch.arange(k, device=dev) < p.n_valid
         lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
         rays = _mask_rays(rays, lane_live[lo:hi], self.bh)
         L, work = est_radiance(self.scene, self.bh, rays, cfg, gen,
@@ -180,20 +296,24 @@ class Renderer:
         L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         L = torch.where(valid_k[:, None, None], L.reshape(k, n, 3), 0.0)
 
-        rad_sum = rad_sum + torch.where(active[:, None], L.sum(0), 0.0)
+        rad_sum += torch.where(active[:, None], L.sum(0), 0.0)
         illum = 0.2126 * L[..., 0] + 0.7152 * L[..., 1] + 0.0722 * L[..., 2]
-        s1 = s1 + torch.where(active, illum.sum(0), 0.0)
-        s2 = s2 + torch.where(active, (illum * illum).sum(0), 0.0)
-        count = count + n_valid * active.to(torch.int32)
-        if cfg.adaptive and (sample_idx + n_valid) % cfg.samples_per_batch == 0:
+        s1 += torch.where(active, illum.sum(0), 0.0)
+        s2 += torch.where(active, (illum * illum).sum(0), 0.0)
+        count += p.n_valid * active.to(torch.int32)
+        if cfg.adaptive:
+            # the freeze applies at a batch boundary only; the predicate is
+            # read on the device, so both sides share the pass
+            boundary = (p.sample_idx + p.n_valid) % cfg.samples_per_batch == 0
             i1 = count.to(torch.float32)
             avg = s1 / torch.clamp(i1, min=1.0)
             var = (s2 - avg * s1) / torch.clamp(i1 - 1.0, min=1.0)
             sd = torch.sqrt(torch.clamp(var, min=0.0))
             conv = (1.96 * sd / torch.sqrt(torch.clamp(i1, min=1.0))
                     <= cfg.max_tolerance * avg)
-            done = done | (active & conv)
-        return (rad_sum, s1, s2, count, done), work
+            done |= boundary & active & conv
+        p.tests += work.tests
+        return work.calls
 
     # ------------------------------------------------------------ checkpoints
 
@@ -261,39 +381,38 @@ class Renderer:
         # resumed render splits its samples into the same passes
         k = self.samples_per_pass(n)
         s = 0
-        acc = None
+        loaded = None
         if resume and checkpoint_path and os.path.exists(checkpoint_path):
-            acc, s = self.load_checkpoint(checkpoint_path, region)
-        if acc is None:
-            acc = (torch.zeros((n, 3), device=dev), torch.zeros(n, device=dev),
-                   torch.zeros(n, device=dev),
-                   torch.zeros(n, dtype=torch.int32, device=dev),
-                   torch.zeros(n, dtype=torch.bool, device=dev))
-        work = TraceWork(torch.zeros(2, dtype=torch.float64, device=dev))
+            loaded, s = self.load_checkpoint(checkpoint_path, region)
+        runner = self._pass_fn(k, rw, rh)
+        runner.reset(loaded)
+        self.camera.frame(torch.float32, dev)   # a moved camera is seen
+        acc = runner.acc
+        calls = 0
+        warm_samples = 0
         self._stop = False
         cancelled = False
-        # a sharded render turns Ctrl-C into a stop at the next pass
-        # boundary, which every rank then agrees on: an interrupt inside a
-        # collective would leave the other ranks waiting in it
+        # Ctrl-C becomes a stop at the next pass boundary: the accumulators
+        # are updated in place, so a pass is never left half added, and a
+        # sharded render's ranks then agree on the stop (an interrupt
+        # inside a collective would leave the other ranks waiting in it)
         sigint = None
-        if self.mesh is not None \
-                and threading.current_thread() is threading.main_thread():
+        if threading.current_thread() is threading.main_thread():
             sigint = signal.signal(signal.SIGINT, lambda *_: self.stop())
         try:
             while s < cfg.ns_aa:
                 ks = min(k, cfg.ns_aa - s)
-                first = (k, rw, rh) not in self._shapes_seen
+                # the shape's first pass and its capture, timed apart from
+                # the steady passes
+                first = not runner.warm
                 with self.timer.phase("compile+first-pass" if first
                                       else "passes"):
-                    new_acc, w = self._sample_pass(
-                        acc, pass_generator(cfg.seed, s, 0, dev), s, ks, k,
-                        region)
-                    acc, s = new_acc, s + ks
-                    work = work + w
-                    if first:
-                        self._shapes_seen.add((k, rw, rh))
-                        if dev.type == "cuda":
-                            torch.cuda.synchronize(dev)
+                    calls += runner.run(self, cfg.seed, s, ks, region[0],
+                                        region[1])
+                    s += ks
+                    if first and dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                warm_samples += ks if first else 0
                 all_done = cfg.adaptive and s % cfg.samples_per_batch == 0 \
                     and bool(torch.all(acc[4]))
                 stop = False
@@ -324,14 +443,14 @@ class Renderer:
                     cancelled = True
                     break
         except KeyboardInterrupt:
-            # acc and s change together, so they hold the last whole pass
+            # raised between passes (by `progress`): acc holds s samples
             cancelled = True
         finally:
             if sigint is not None:
                 signal.signal(signal.SIGINT, sigint)
         if cancelled and checkpoint_path:
             self.save_checkpoint(checkpoint_path, acc, s, region)
-        tests, calls = work.tests, work.calls
+        tests = runner.tests.clone()
         if self.mesh is not None:
             tests = pdist.all_reduce_sum(tests, self.mesh)
         with self.timer.phase("passes"):        # waits for the device
@@ -341,6 +460,7 @@ class Renderer:
         self.last_sample_count = count
         self.last_trace_tests = tests.cpu().numpy()
         self.last_trace_calls = calls
+        self.last_warm_samples = warm_samples
         self.samples_done = s
         self.cancelled = cancelled
         hdr = rad_sum.reshape(rh, rw, 3) / np.maximum(count[..., None], 1)

@@ -3,7 +3,9 @@
 
 The camera state lives on the host as numpy floats; `generate_rays` and
 `generate_rays_thin_lens` build torch tensors on the device of the screen
-coordinates they are given.
+coordinates they are given, reading the camera frame from device tensors
+made once per device (`frame`), so that a captured render pass makes no
+host copy.
 """
 from __future__ import annotations
 
@@ -120,12 +122,31 @@ class Camera:
             max_t=torch.full(shape, self.f_clip, dtype=xy.dtype,
                              device=xy.device))
 
+    def frame(self, dtype, device):
+        """(c2w (3,3), pos (3,)) as tensors of `dtype` on `device`, made on
+        first use and kept; when the host values have changed since, the
+        kept tensors are refreshed in place, so that a CUDA graph that
+        reads them sees the camera as it is at its next replay's render."""
+        cache = self.__dict__.setdefault("_frames", {})
+        host = (np.asarray(self.c2w, np.float64).copy(),
+                np.asarray(self.pos, np.float64).copy())
+        key = (torch.device(device), dtype)
+        kept = cache.get(key)
+        if kept is None:
+            kept = cache[key] = [host] + [torch.as_tensor(a, dtype=dtype,
+                                                          device=device)
+                                          for a in host]
+        elif not all(np.array_equal(a, b) for a, b in zip(kept[0], host)):
+            kept[0] = host
+            kept[1].copy_(torch.as_tensor(host[0], dtype=dtype))
+            kept[2].copy_(torch.as_tensor(host[1], dtype=dtype))
+        return kept[1], kept[2]
+
     def generate_rays(self, xy: torch.Tensor) -> Rays:
         """Pinhole rays for normalized screen coordinates xy ∈ [0,1]²
         (..., 2), on xy's device (part1_code.cpp:182-187)."""
-        c2w = torch.as_tensor(self.c2w, dtype=xy.dtype, device=xy.device)
+        c2w, pos = self.frame(xy.dtype, xy.device)
         d = self._screen_dirs(xy) @ c2w.T
-        pos = torch.as_tensor(self.pos, dtype=xy.dtype, device=xy.device)
         return self._rays(pos, d, xy)
 
     def generate_rays_thin_lens(self, xy: torch.Tensor, rnd_r: torch.Tensor,
@@ -137,8 +158,7 @@ class Camera:
         p_lens = torch.stack([lr * torch.cos(rnd_theta),
                               lr * torch.sin(rnd_theta),
                               torch.zeros_like(lr)], dim=-1)
-        c2w = torch.as_tensor(self.c2w, dtype=xy.dtype, device=xy.device)
-        pos = torch.as_tensor(self.pos, dtype=xy.dtype, device=xy.device)
+        c2w, pos = self.frame(xy.dtype, xy.device)
         o = pos + p_lens @ c2w.T
         d = (pin * self.focal_distance - p_lens) @ c2w.T
         return self._rays(o, d, xy)

@@ -7,13 +7,16 @@ of tools/run_config.py):
 
 SCENE is a .dae file or the name of a procedural scene of
 `rrt_tpu_torch.scenes` (`cbox_dense`). The render runs on the card; the
-CPU only with `--device cpu`. The first pass is timed apart from the rest
-(the renderer's "compile+first-pass" phase: the kernel's build and first
-launches) and the rates are over the steady passes alone; a render of one
-pass is rendered once more to time a steady pass. The JSON line has the
-JAX tool's keys (wall, first pass, steady seconds, camera, marched and
-geodesic-step rates, total traces, mean radiance), plus the device, the
-trace calls of a render and the trace kernel's launches in it.
+CPU only with `--device cpu`. The first pass, and on a card the pass that
+captures it as a CUDA graph, are timed apart from the rest (the renderer's
+"compile+first-pass" phase: the kernel's build, its first launches and
+the capture) and the rates are over the steady passes alone; a render
+without a steady pass is rendered again until it has one. The JSON line
+has the JAX tool's keys (wall, first pass, steady seconds, camera, marched
+and geodesic-step rates, total traces, mean radiance), plus the device,
+the trace calls of a render and the trace kernel's runs in it, as the
+kernel counted them on the device (`trace_kernel.kernel_runs`), replays
+included.
 
 The ROADMAP's configurations on in-repo scenes (`CONFIGS`):
   1. the Cornell box, 256×256, 4 spp, direct lighting (-m 1 -l 1);
@@ -91,26 +94,30 @@ def run(argv):
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
         else (lambda: None)
     with backend(args.backend, device):
-        r = Renderer(scene, cam, cfg, device)
-        tk.LAUNCHES = 0
+        # the plain traversal reads the host inside a pass, so it cannot be
+        # captured; a replay would not call the swapped-in function anyway
+        r = Renderer(scene, cam, cfg, device,
+                     graphs=False if args.backend == "plain" else None)
+        tk.reset_counts()
         t0 = time.perf_counter()
         hdr, _ = r.render(progress=lambda s, t: print(
             f"# {s}/{t} samples t={time.perf_counter() - t0:.1f}s",
             file=sys.stderr, flush=True))
         sync()
         wall = time.perf_counter() - t0
-        launches, calls = tk.LAUNCHES, r.last_trace_calls
+        launches, calls = tk.kernel_runs(), r.last_trace_calls
         st = r.stats(wall)
         compile_s = r.timer.phases.get("compile+first-pass", 0.0)
         steady = r.timer.phases.get("passes", 0.0)
-        first = min(r.samples_per_pass(w * h), args.spp) * w * h
-        steady_rays = st.camera_rays - first
-        if steady_rays <= 0:         # one pass: time it again, warm
+        steady_rays = (r.samples_done - r.last_warm_samples) * w * h
+        for _ in range(2):     # no steady pass yet: render again, warm
+            if steady_rays > 0:
+                break
             before = r.timer.phases.get("passes", 0.0)
             r.render()
             sync()
             steady = r.timer.phases["passes"] - before
-            steady_rays = st.camera_rays
+            steady_rays = (r.samples_done - r.last_warm_samples) * w * h
     share = steady_rays / max(st.camera_rays, 1)
     per_s = 1.0 / max(steady, 1e-9)
     out = {

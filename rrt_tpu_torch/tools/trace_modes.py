@@ -306,9 +306,15 @@ def render_launches(renderer, peak, launch=None, work=True):
     """One render of `renderer` with every trace launch timed by CUDA
     events around it and, with `work`, its work read from its inputs and
     outputs (`trace_work`); `launch` replaces the kernel's launcher
-    (`trace_kernel._launch`) for this render. Returns (wall seconds,
-    [dict per launch])."""
+    (`trace_kernel._launch`) for this render. The renderer must run its
+    passes eagerly (`Renderer(..., graphs=False)`): a replayed pass calls
+    no Python launcher, so the swaps would not see it. Returns (wall
+    seconds, [dict per launch])."""
     from rrt_tpu_torch.ops import trace_kernel as tk
+    if renderer.graphs:
+        raise ValueError("render_launches times each launch through the "
+                         "Python launcher: build the renderer with "
+                         "graphs=False")
     rows, real_trace, real_launch = [], tk.trace_rays, tk._launch
 
     def timed_trace(tab, o, d, min_t, max_t, occlusion=False):
@@ -454,7 +460,8 @@ def main(argv=None) -> int:
     for what, names, batches in groups:
         for label, t, a, occ in batches:
             _emit(what, card, batch=label, ms=turns(names, t, a, occ))
-    rend = Renderer(mp["scene"], mp["cam"], mp["cfg"], dev)
+    # eager passes: the builds are swapped in through the Python launcher
+    rend = Renderer(mp["scene"], mp["cam"], mp["cfg"], dev, graphs=False)
     rend.render()
     res = {}
     for name in ("default", "refill 1", "refill 32", "refill 32", "refill 1",

@@ -4,10 +4,11 @@ defaults).
 
 Reference: `pathtracer/src/main.cpp:28-150` (flags), `application.h:41-85`
 (AppConfig defaults), `pathtracer.h:4-6` (ILLUM/ADAPTIVE/THIN_LENS compile
-switches — here they are runtime config fields). Some fields steer parts
-of the JAX package that the port does not have (`trace_backend`,
-`max_dispatch_seconds`, `differentiable`); they are kept so that one set
-of values configures both packages.
+switches — here they are runtime config fields). Two fields steer parts
+of the JAX package that the port does not have and steer nothing in the
+port (`trace_backend`, `max_dispatch_seconds`); they are kept so that one
+set of values configures both packages. `differentiable` is ported
+(`render/integrator.py`, `render/diff.py`).
 """
 from __future__ import annotations
 
@@ -84,9 +85,11 @@ class RenderConfig:
     # EPS_D=1e-11 on ray origins in double precision (misc.h:12); at f32 an
     # absolute offset of ~1e-4·scene-scale is required instead.
     ray_eps: float = 1e-4
-    # differentiable mode of the JAX package (not ported yet)
+    # closest hits through `trace_diff`, so that renders carry gradients
+    # (render/integrator.py, render/diff.py)
     differentiable: bool = False
-    # trace backend of the JAX package: "auto" | "pallas" | "xla"
+    # trace backend of the JAX package: "auto" | "pallas" | "xla"; steers
+    # nothing in the port (its traces go to the kernel on a card)
     trace_backend: str = "auto"
     # NEE shadow-ray chunking: at -l 64 the reference's per-light sample
     # loop (part1_code.cpp:33-57) becomes a 64-128x lane multiplier if all
@@ -94,7 +97,8 @@ class RenderConfig:
     # axis at this many entries per trace and loop over chunks instead.
     nee_chunk: int = 16
     # per-dispatch wall budget of the JAX package's dispatch planner
-    # (seconds, 0 disables it); the port has no planner
+    # (seconds, 0 disables it); steers nothing in the port, which has no
+    # planner
     max_dispatch_seconds: float = 120.0
 
     def replace(self, **kw) -> "RenderConfig":

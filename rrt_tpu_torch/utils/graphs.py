@@ -1,0 +1,109 @@
+"""Compiled calls: a function of static tensors captured once as a CUDA
+graph and replayed (the port's counterpart of `jax.jit` for a pass or a
+block of march steps; see `render/renderer.Renderer._pass_fn` and
+`render/kerr_scene.DiskMarch`).
+
+`CapturedCall(fn, device)` holds a function that reads and writes only
+tensors made before its first call (its static buffers, updated in place:
+the counterpart of `donate_argnums`), reached through the arguments it is
+called with. The first call runs `fn` eagerly on a side stream, as
+`torch.cuda.graphs` asks of a warm-up, and that run is the call's real
+result. The second call captures `fn` into a `torch.cuda.CUDAGraph`
+(capture runs nothing and changes no buffer) and replays it; every later
+call replays. So a call made once costs no capture. Values that change
+from call to call must be device tensors that `fn` reads; host→device
+copies and host reads inside `fn` break the capture. A capture that fails
+raises, naming the innermost line of this package it was in; nothing
+falls back to eager. Autograd inside `fn` (Kerr's `_rhs`) is captured in
+the default capture mode.
+
+Generators that `fn` draws from are registered with the graph
+(`register_generator_state`); re-seeding one with `manual_seed` before a
+replay makes the replay draw what a fresh generator of that seed draws,
+bit for bit.
+
+A replay runs the trace kernel without its Python wrapper, so
+`ops.trace_kernel.LAUNCHES` counts only eager launches (a capture records
+and launches nothing); the kernel's own count on the device,
+`ops.trace_kernel.kernel_runs()`, sees every run, replays included.
+`fn`'s return value (the renderer's trace calls) is the one of the
+capture, which every replay repeats.
+"""
+from __future__ import annotations
+
+import os
+import time
+import traceback
+from typing import Callable, Sequence
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _where(exc: BaseException) -> str:
+    """file:line and source of the innermost frame of this package in
+    exc's traceback (the op that broke a capture)."""
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if f.filename.startswith(_PKG)
+              and not f.filename.endswith(os.path.join("utils", "graphs.py"))]
+    if not frames:
+        return "outside rrt_tpu_torch"
+    f = frames[-1]
+    return (f"{os.path.relpath(f.filename, os.path.dirname(_PKG))}:"
+            f"{f.lineno} ({f.line})")
+
+
+class CapturedCall:
+    """`fn(*args)` run eagerly once, then captured and replayed. `args`
+    must be the same objects at every call (they hold the static buffers;
+    a replay does not read them, and the call keeps no reference to them).
+    `fn` returns a value that does not change between calls. `pool` is a
+    `torch.cuda.graph_pool_handle()` shared with the owner's other graphs;
+    `generators` are those `fn` draws from."""
+
+    def __init__(self, fn: Callable, device, pool=None,
+                 generators: Sequence[torch.Generator] = (),
+                 name: str = "call"):
+        self.fn, self.device, self.pool = fn, torch.device(device), pool
+        self.generators = tuple(generators)
+        self.name = name
+        self.graph = None
+        self.result = None        # fn's return value, kept from the capture
+        self.calls = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+
+    def _warm_up(self, *args):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            out = self.fn(*args)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        return out
+
+    def _capture(self, *args):
+        """fn captured into a new graph; returns the graph."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=self.pool):
+            self.result = self.fn(*args)
+        return graph
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls == 1:
+            return self._warm_up(*args)
+        if self.graph is None:
+            t0 = time.perf_counter()
+            try:
+                self.graph = self._capture(*args)
+            except Exception as exc:   # noqa: BLE001 — re-raised with context
+                raise RuntimeError(
+                    f"capturing {self.name} as a CUDA graph failed at "
+                    f"{_where(exc)}: {type(exc).__name__}: {exc}") from exc
+            self.capture_seconds = time.perf_counter() - t0
+        self.graph.replay()
+        self.replays += 1
+        return self.result

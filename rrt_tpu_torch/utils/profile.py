@@ -4,8 +4,13 @@
 ends in the device read-back of `Renderer.render`), reads the peak device
 memory over them, and takes one `torch.profiler` trace of a further render:
 its wall time, the summed time of the device events (kernels, copies,
-fills; one stream, so they do not overlap) and the kernels that took most
-of it. `python3 chip_smoke.py` prints its report for the main path.
+fills; one stream, so they do not overlap), the kernels that took most
+of it, and the host's launches per pass: the launch calls the host made
+(`host_launches`: kernel launches, memsets, copies and graph launches,
+from the trace's runtime events), of which a captured pass is one graph
+launch plus the few eager ops around it. Device time by kernel name
+counts the kernels inside a replayed graph too. `python3 chip_smoke.py`
+prints its report for the main path.
 
 `profile_call(fn, ranges)` traces one call and splits its device time:
 the trace kernel's launches, each named `record_function` range's ops
@@ -29,12 +34,17 @@ class RenderProfile:
     profiled_wall: float   # seconds of the profiled render
     device_ms: float       # summed device-event time of that render
     top: list              # (name, launches, device ms), largest first
+    passes: int = 0        # passes in the profiled render
+    host_launches: int = 0   # launch calls of the host in it
+    graph_launches: int = 0  # of them, graph replays
 
     def report(self) -> str:
         lines = [
             "warm render walls (s): "
             + ", ".join(f"{w:.4f}" for w in self.walls),
-            f"peak device memory: {self.peak_mib:.1f} MiB"]
+            f"peak device memory: {self.peak_mib:.1f} MiB",
+            launch_line(self.host_launches, self.graph_launches,
+                        self.passes)]
         if self.device_ms <= 0.0:
             lines.append("device time: not measured (the profiler saw no "
                          "device events)")
@@ -55,6 +65,33 @@ def _on_device(ev) -> bool:
     between them, and is not counted."""
     return (ev.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(ev, "is_user_annotation", False))
+
+
+# the host's launch calls as the profiler's runtime events name them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemsetAsync", "cudaMemcpyAsync",
+                "cudaGraphLaunch")
+
+
+def host_launches(events):
+    """(launch calls, graph launches) of the host in a trace's events."""
+    names = [ev.name for ev in events
+             if ev.device_type == torch.autograd.DeviceType.CPU
+             and ev.name in LAUNCH_CALLS]
+    return len(names), names.count("cudaGraphLaunch")
+
+
+def launch_line(n: int, graphs: int, passes: int) -> str:
+    if n == 0:
+        return "host launches: not measured (the profiler saw no runtime " \
+               "launch calls)"
+    per = f", {n / passes:.1f} a pass over {passes}" if passes else ""
+    return f"host launches: {n}{per} ({graphs} graph replays)"
+
+
+def passes_run(renderer) -> int:
+    """Passes `renderer` has run so far, over all its pass shapes."""
+    return sum(r.passes for r in renderer._pass_fns.values())
 
 
 def _by_name(events, skip=()):
@@ -89,14 +126,19 @@ def profile_render(renderer, reps: int = 5, top: int = 8) -> RenderProfile:
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    passes = passes_run(renderer)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         renderer.render()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    rows = _by_name(prof.events())
+    events = prof.events()
+    rows = _by_name(events)
+    n, graphs = host_launches(events)
     return RenderProfile(walls=walls, peak_mib=peak, profiled_wall=wall,
-                         device_ms=sum(r[2] for r in rows), top=rows[:top])
+                         device_ms=sum(r[2] for r in rows), top=rows[:top],
+                         passes=passes_run(renderer) - passes,
+                         host_launches=n, graph_launches=graphs)
 
 
 TRACE_KERNEL = "trace_kernel"   # the trace kernel's launches hold this name
@@ -111,6 +153,8 @@ class CallProfile:
     ranges: dict       # range name -> (forward ms, backward ms) of device
     top: list = dataclasses.field(default_factory=list)  # as RenderProfile's
     launches: int = 0  # device events (kernels, copies, fills) in the call
+    host_launches: int = 0   # launch calls of the host (`host_launches`)
+    graph_launches: int = 0  # of them, graph replays
 
     def report(self) -> str:
         parts = [f"wall {1e3 * self.wall:.1f} ms, device "
@@ -173,8 +217,10 @@ def profile_call(fn, ranges=(), device=None) -> CallProfile:
         fn()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    device_ms, kernel_ms, out, rows = split_device_time(prof.events(),
-                                                        ranges)
+    events = prof.events()
+    device_ms, kernel_ms, out, rows = split_device_time(events, ranges)
+    n, graphs = host_launches(events)
     return CallProfile(wall=wall, device_ms=device_ms, kernel_ms=kernel_ms,
                        ranges=out, top=rows[:CALL_TOP],
-                       launches=sum(n for _, n, _ in rows))
+                       launches=sum(n for _, n, _ in rows),
+                       host_launches=n, graph_launches=graphs)

@@ -352,3 +352,98 @@ def test_sharded_trace_over_nccl_world_of_one(device, tmp_path, occlusion):
     for f in ("hit", "t", "p", "n", "w_out", "prim_id", "bsdf_id"):
         assert torch.equal(getattr(hm, f), getattr(h, f)), f
     assert torch.equal(stm, st)
+
+
+# renders whose passes a graph replays, each against the eager passes
+# (`graphs=False`): (scene, size, config keywords, what the render does)
+GRAPH_CASES = {
+    "curved GI, one pass": ("cbox", 64, dict(ns_aa=16), None),
+    "tail pass": ("cbox", 64, dict(ns_aa=10, max_pass_lanes=4 * 64 * 64),
+                  None),
+    "cells of one size": ("cbox", 64, dict(ns_aa=4), "cells"),
+    "adaptive": ("cbox", 64, dict(ns_aa=16, adaptive=True,
+                                  samples_per_batch=4,
+                                  max_pass_lanes=2 * 64 * 64), None),
+    "one sample a pass": ("cbox", 64, dict(max_pass_lanes=64 * 64), None),
+    "cbox_dense": ("dense", 64, dict(ns_aa=1, ns_area_light=1,
+                                     max_ray_depth=2), None),
+    "flat": ("cbox", 64, dict(flat=True), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_passes_equal_eager(device, case):
+    """Passes captured as CUDA graphs and replayed equal the eager passes
+    bit for bit (accumulators, counters, trace calls), over three renders
+    of one renderer. The kernel's own count of its runs equals the trace
+    calls in every render; from the second render on, every pass replays
+    (or is captured), so the Python launcher launches nothing."""
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.utils.config import BlackHoleConfig, RenderConfig
+    name, size, kw, how = GRAPH_CASES[case]
+    kw = dict(kw)
+    if kw.pop("flat", False):
+        kw["black_hole"] = BlackHoleConfig(enabled=False)
+    cfg = RenderConfig(width=size, height=size, **{
+        "ns_area_light": 4, "max_ray_depth": 5, **kw})
+    scene, cam = (build_scene(cbox_dense(), device, size, size)
+                  if name == "dense" else
+                  load_scene(CBOX_SPHERES, device, size, size))
+
+    def run(r):
+        out, calls = [], 0
+        for region in ([(0, 0, 24, 16), (30, 40, 24, 16)] if how == "cells"
+                       else [None]):
+            r.render(region=region)
+            out += [*r.last_accumulators, r.last_trace_tests]
+            calls += r.last_trace_calls
+        return out, calls
+    eager = Renderer(scene, cam, cfg, device, graphs=False)
+    graph = Renderer(scene, cam, cfg, device)
+    assert graph.graphs and not eager.graphs
+    want, _ = run(eager)
+    for i in range(3):
+        tk.reset_counts()
+        got, calls = run(graph)
+        assert tk.kernel_runs() == calls > 0
+        assert tk.LAUNCHES == 0 or i == 0
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert sum(p.call.replays for p in graph._pass_fns.values()) >= 2
+
+
+@pytest.mark.cuda
+def test_kerr_march_blocks_equal_eager(device):
+    """The Kerr march in captured blocks (`DiskMarch`, blocks of 20 and a
+    remainder of 10) equals the step-by-step march bit for bit, on first
+    use and on replay; render_image's default on a card is the blocks."""
+    from rrt_tpu_torch.convert import (disk_from_arrays,
+                                       kerr_params_from_arrays)
+    from rrt_tpu_torch.render import kerr_scene as K
+    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, device)
+    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, device)
+    o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), 30.0, 32, 32, device=device)
+    want = K.render_rays(o, d, bh, disk, n_steps=130)
+    march = K.DiskMarch(bh, disk)
+    for _ in range(2):
+        got = K.render_rays(o, d, bh, disk, n_steps=130, march=march)
+        assert torch.equal(got, want)
+    assert [c.replays for c in march.calls.values()] == [11, 1]
+    img = K.render_image(32, 32, bh, disk, n_steps=130, device=device)
+    np.testing.assert_array_equal(img, K.render_image(
+        32, 32, bh, disk, n_steps=130, device=device, graphs=False))
+
+
+@pytest.mark.cuda
+def test_run_config_plain_backend_on_the_card(device):
+    """`run_config --backend plain` on a card: the plain traversal reads the
+    host inside a pass, so its renderer runs its three passes eagerly; the
+    render ends with a finite, lit image and no kernel run."""
+    from rrt_tpu_torch.tools import run_config
+    res, hdr, _ = run_config.run([
+        CBOX_SPHERES, "--size", "16", "16", "--spp", "3", "-l", "1", "-m",
+        "1", "--max-pass-lanes", "256", "--backend", "plain", "--device",
+        str(device)])
+    assert res["launches"] == 0 and res["trace_calls"] == 6
+    assert np.isfinite(hdr).all() and hdr.mean() > 0
