@@ -44,17 +44,22 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    against the CPU;
 4b. the differentiable path at full width: one `image_loss` gradient
    step of the main path's render (256×256, 1 spp, -l 4, -m 5, curved
-   GI): trace launches equal to its trace calls, every leaf's gradient
-   finite and the radius's nonzero; warm walls, peak memory, the memory
-   one replayed trace of 65,536 lanes saves, and the device time split
-   into the trace kernel, the replay's ops (forward and backward) and the
-   rest;
+   GI) through `diff.LossAndGrad`, eager and compiled (a CUDA graph
+   captured at its second call, `grad_step_case`): the compiled step
+   equal to the eager one bit for bit at every call, the kernel's runs
+   equal to the trace calls, no eager launch in a replayed step, every
+   leaf's gradient finite and the radius's nonzero; walls in turns, host
+   launches and the busy share of a step, peak memory, the capture seconds
+   and the graph pool, the memory one replayed trace of 65,536 lanes
+   saves, and the eager step's device time split into the trace kernel,
+   the replay's ops (forward and backward) and the rest;
 4c. BASELINE config 4's closed loops (`rrt_tpu_torch.tools.inverse`,
-   rays framed on the box): the radius must come within 0.015 of the
-   truth (at the card's `RADIUS_SEED`: on the in-repo box the loss moves
-   mostly through discrete events, and the loop recovers at some seeds
-   only, in the JAX package too; see that module), the red wall's albedo
-   within 0.08;
+   rays framed on the box), compiled and eager, which must end at equal
+   values: the radius must come within 0.015 of the truth (at the card's
+   `RADIUS_SEED`: on the in-repo box the loss moves mostly through
+   discrete events, and the loop recovers at some seeds only, in the JAX
+   package too; see that module), the red wall's albedo within 0.08; then
+   one radius step and one albedo step through `grad_step_case`;
 4d. `trace_diff` against the kernel's primal: 400 seeded camera rays,
    curved; equal hits and prims, >= 99.5% of hit points within 1e-4;
 4e. the env-lit main path through the CLI: a seeded 1024×2048 sky with a
@@ -670,6 +675,122 @@ def _spread(xs):
     """median, min and max of a list, as a short string."""
     return (f"median {float(np.median(xs)):.4f} s "
             f"[{min(xs):.4f}, {max(xs):.4f}]")
+
+
+def grad_step_case(dev, card, name, problem, reps=5, ranges=()):
+    """One inverse-rendering step of `problem` = (params, scene, hole,
+    rays, cfg, target, seed) through `diff.LossAndGrad`, eagerly
+    (`graphs=False`) and compiled (a CUDA graph captured at its second
+    call and replayed after): the compiled step equal to the eager one bit
+    for bit at every call (loss and all eleven gradients; the SGD update
+    of `train_step` at the end), the kernel's own count of its runs equal
+    to the step's trace calls at every call, the Python launcher's count
+    too in an eager step and 0 in a replayed one; walls in turns, `reps`
+    each; host launches and the busy share of a profiled step of each
+    (`ranges` split the eager one's device time); peak memory above the
+    case's start, eager and at the capture; the capture seconds and the
+    graph pool's reserved MiB. Returns (row, the eager (loss, grads), the
+    eager step's profile)."""
+    import gc
+    import torch
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.render import diff
+    from rrt_tpu_torch.utils.profile import profile_call
+
+    params, scene, bh, rays, cfg, target, seed = problem
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+    mib = 2 ** 20
+    t_case = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev) / mib
+    steps = {g: diff.LossAndGrad(scene, bh, cfg, rays, target, graphs=g)
+             for g in (False, True)}
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(x, y) for x, y in zip(a[1].leaves(), b[1].leaves()))
+
+    runs = {}     # graphs -> the kernel's runs in the last call
+
+    def counted(g, eager=False):
+        """A call of the step; it launches through Python only when it
+        runs eagerly (`graphs=False`, or the compiled step's warm-up)."""
+        tk.reset_counts()
+        w, out, peak = _timed_call(dev, lambda: steps[g](params, gen()))
+        calls, runs[g] = steps[g].trace_calls, tk.kernel_runs()
+        if runs[g] != calls or calls == 0 or tk.LAUNCHES != (
+                calls if eager or not g else 0):
+            raise AssertionError(
+                f"{name} (graphs {g}): {runs[g]} kernel runs and "
+                f"{tk.LAUNCHES} eager launches for {calls} trace calls")
+        return w, out, peak
+
+    _, ref, eager_peak = counted(False)
+    first, got, _ = counted(True, eager=True)     # the warm-up
+    equal = [same(got, ref)]
+    second, got, cap_peak = counted(True)         # captured and replayed
+    equal.append(same(got, ref))
+    walls = {False: [], True: []}
+    for g in (False, True, True, False) * ((reps + 1) // 2):
+        if len(walls[g]) == reps:
+            continue
+        w, got, _ = counted(g)
+        walls[g].append(w)
+        equal.append(same(got, ref))
+    trained = [steps[g].train_step(params, None, gen(), lr=0.5)
+               for g in (False, True)]
+    equal.append(torch.equal(trained[0][2], trained[1][2]) and all(
+        torch.equal(x, y) for x, y in zip(trained[0][0].leaves(),
+                                          trained[1][0].leaves())))
+    prof = {g: profile_call(lambda: steps[g](params, gen()),
+                            ranges=() if g else ranges, device=dev)
+            for g in (False, True)}
+    call = steps[True].call
+    capture, replays = call.capture_seconds, call.replays
+    trace_calls = steps[True].trace_calls
+    # the graph's memory pool: what the compiled step keeps reserved, the
+    # eager step and the cached blocks gone, against the same without it
+    del steps[False], trained, got, call
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved(dev) / mib
+    del steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool -= torch.cuda.memory_reserved(dev) / mib
+    row = dict(
+        equal=all(equal), calls=len(equal), trace_calls=trace_calls,
+        replay_kernel_runs=runs[True], eager=walls[False],
+        graph=walls[True], first_graph_call=first, capture_call=second,
+        capture_s=capture, replays=replays,
+        host_launches={str(g): p.host_launches for g, p in prof.items()},
+        busy={str(g): p.device_ms / (1e3 * p.wall) for g, p in prof.items()},
+        # the profiled step's device time over the median unprofiled wall
+        # (tracing every kernel slows a profiled replay)
+        device_over_wall={str(g): p.device_ms / (1e3 * np.median(walls[g]))
+                          for g, p in prof.items()},
+        device_ms={str(g): p.device_ms for g, p in prof.items()},
+        peak_mib=dict(eager=eager_peak - held, graph_capture=cap_peak - held),
+        pool_mib=pool, seconds=time.perf_counter() - t_case)
+    print(f"[smoke] gradient step, {name}: compiled = eager bit for bit "
+          f"{row['equal']} ({row['calls']} calls, loss, 11 gradients and "
+          f"the SGD update); eager {_spread(walls[False])}, compiled "
+          f"{_spread(walls[True])}; first compiled call (eager) {first:.4f} "
+          f"s, second {second:.4f} s (capture {capture:.4f} s); host "
+          f"launches a step eager {prof[False].host_launches}, compiled "
+          f"{prof[True].host_launches} ({prof[True].graph_launches} graph "
+          f"replays); busy eager {row['busy']['False']:.1%}, compiled "
+          f"{row['busy']['True']:.1%} (device over the median wall: "
+          f"{row['device_over_wall']['False']:.1%} / "
+          f"{row['device_over_wall']['True']:.1%}; device "
+          f"{prof[False].device_ms:.1f} / "
+          f"{prof[True].device_ms:.1f} ms); peak above the case's start "
+          f"eager {row['peak_mib']['eager']:.1f} MiB, at the capture "
+          f"{row['peak_mib']['graph_capture']:.1f} MiB; graph pool "
+          f"{pool:.1f} MiB reserved; case {row['seconds']:.1f} s ({card})")
+    if not row["equal"]:
+        raise AssertionError(f"gradient step, {name}: the compiled step "
+                             f"differs from the eager one")
+    return row, ref, prof[False]
 
 
 def graphs_phase(dev, card, tmp, reps=5):
@@ -1592,7 +1713,8 @@ def main(argv=None):
         raise AssertionError("card and CPU renders disagree")
 
     # ---- 4b. the differentiable path at full width: one image_loss
-    # gradient step of the main path's render at 1 spp
+    # gradient step of the main path's render at 1 spp, eager and compiled
+    # (`diff.LossAndGrad`: a CUDA graph captured at its second call)
     dcfg = RenderConfig(width=256, height=256, ns_aa=1, ns_area_light=4,
                         max_ray_depth=5)
     dscene, dcam = load_scene(CBOX_SPHERES, dev, 256, 256)
@@ -1601,40 +1723,18 @@ def main(argv=None):
     dparams = diff.params_from_scene(dscene, dbh)
     dtarget = torch.zeros_like(drays.o)
     names = [f.name for f in dataclasses.fields(diff.SceneParams)]
-
-    def diff_step():
-        """image_loss and its gradient, as `diff.loss_and_grad` takes them,
-        with the integrator's trace work."""
-        leaves = [x.detach().requires_grad_(True) for x in dparams.leaves()]
-        img, work = diff.render_radiance(
-            diff.SceneParams.from_leaves(leaves), dscene, dbh, drays, dcfg,
-            torch.Generator(device=dev).manual_seed(0), with_work=True)
-        loss = torch.mean((img - dtarget) ** 2)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        torch.cuda.synchronize(dev)
-        return loss, grads, work
-
-    tk.LAUNCHES = 0
-    dloss, dgrads, dwork = diff_step()
-    diff_launches = tk.LAUNCHES
-    if diff_launches != dwork.calls or diff_launches == 0:
-        raise AssertionError(f"{diff_launches} kernel launches for "
-                             f"{dwork.calls} trace calls of a diff step")
-    for name, g in zip(names, dgrads):
-        if g is not None and not torch.isfinite(g).all():
+    grad_rows = {}
+    grad_rows["diff step"], (dloss, dgrads), dprof = grad_step_case(
+        dev, card, "diff step 256x256 1spp -l 4 -m 5 curved GI",
+        (dparams, dscene, dbh, drays, dcfg, dtarget, 0),
+        ranges=("trace_diff.replay",))
+    diff_launches = grad_rows["diff step"]["trace_calls"]
+    for name, g in zip(names, dgrads.leaves()):
+        if not torch.isfinite(g).all():
             raise AssertionError(f"diff step: {name} gradient not finite")
-    g_r = dgrads[names.index("bh_radius")]
-    if g_r is None or not g_r.item() != 0.0:
+    g_r = dgrads.bh_radius
+    if not g_r.item() != 0.0:
         raise AssertionError(f"diff step: bh_radius gradient {g_r}")
-    diff_walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        diff_step()
-        diff_walls.append(time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats(dev)
-    mem0 = torch.cuda.memory_allocated(dev)
-    diff_step()
-    diff_peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     # what one replayed trace of the camera's 65,536 lanes keeps for its
     # backward pass: the allocation its live output holds
     leaves = [x.detach().clone().requires_grad_(True)
@@ -1646,40 +1746,85 @@ def main(argv=None):
     torch.cuda.synchronize(dev)
     replay_mib = (torch.cuda.memory_allocated(dev) - mem1) / 2 ** 20
     del hd, leaves
-    dprof = profile_call(diff_step, ranges=("trace_diff.replay",),
-                         device=dev)
+    # the hole's row as the step writes it on the card, against the row
+    # `build_tables` computes on the host (cos and sin of Δθ may differ
+    # by an ulp; the step's eager and compiled runs read the same one)
+    row_card = tk.hole_row(dbh, dev).cpu()
+    row_host = tk.build_tables(dscene, dbh).params[:tk.P_GLO].cpu()
     print(f"[smoke] diff step 256x256 1spp -l 4 -m 5 curved GI: loss "
-          f"{dloss.item():.6g}, d/d radius {g_r.item():.6g}, "
-          f"{diff_launches} kernel launches = trace calls; warm walls (s) "
-          f"{[round(w, 4) for w in diff_walls]}, peak memory "
-          f"{diff_peak_mib:.1f} MiB ({mem0 / 2 ** 20:.1f} MiB before), one "
-          f"replayed trace of 65536 lanes keeps {replay_mib:.1f} MiB "
-          f"({card})")
-    print(f"[smoke] diff step profile: {dprof.report()} ({card})")
+          f"{dloss.item():.6g}, d/d radius {g_r.item():.6g}, every "
+          f"gradient finite; one replayed trace of 65536 lanes keeps "
+          f"{replay_mib:.1f} MiB; the hole's row on the card equals the "
+          f"host's {torch.equal(row_card, row_host)} (max abs difference "
+          f"{float((row_card - row_host).abs().max()):.3g}) ({card})")
+    print(f"[smoke] diff step profile (eager): {dprof.report()} ({card})")
 
-    # ---- 4c. BASELINE config 4's closed loops on the card
-    tk.LAUNCHES = 0
-    radius, radius_true, radius_ms = inverse.recover_radius(dev)
-    radius_launches = tk.LAUNCHES
-    tk.LAUNCHES = 0
-    albedo, albedo_true, albedo_ms = inverse.recover_albedo(dev)
-    albedo_launches = tk.LAUNCHES
-    albedo_err = float(np.abs(albedo - albedo_true).max())
-    print(f"[smoke] config 4 radius loop (seed "
-          f"{inverse.RADIUS_SEED['cuda']}): {inverse.RADIUS_STEPS} steps "
-          f"from {inverse.RADIUS_START} end at "
-          f"{radius:.5f} (true {radius_true:.5f}), {radius_ms:.2f} ms per "
-          f"step, {radius_launches} kernel launches ({card})")
-    print(f"[smoke] config 4 albedo loop: red wall {albedo.tolist()} (true "
-          f"{albedo_true.tolist()}), max err {albedo_err:.4f}, "
-          f"{albedo_ms:.2f} ms per step, {albedo_launches} kernel launches "
-          f"({card})")
-    if min(radius_launches, albedo_launches) == 0:
-        raise AssertionError("config 4's loops launched no kernel")
-    if not abs(radius - radius_true) < 0.015:
-        raise AssertionError(f"config 4 radius {radius}, true {radius_true}")
-    if not albedo_err < 0.08:
-        raise AssertionError(f"config 4 albedo error {albedo_err}")
+    # ---- 4c. BASELINE config 4's closed loops on the card, through the
+    # compiled step and eagerly: the same end values; then one step of
+    # each, eager and compiled, in turns
+    ends = {}
+    for graphs in (True, False):
+        tk.reset_counts()
+        radius, radius_true, radius_ms = inverse.recover_radius(
+            dev, graphs=graphs)
+        radius_launches = (tk.LAUNCHES, tk.kernel_runs())
+        tk.reset_counts()
+        albedo, albedo_true, albedo_ms = inverse.recover_albedo(
+            dev, graphs=graphs)
+        albedo_launches = (tk.LAUNCHES, tk.kernel_runs())
+        albedo_err = float(np.abs(albedo - albedo_true).max())
+        how = "compiled" if graphs else "eager"
+        ends[how] = (radius, albedo)
+        print(f"[smoke] config 4 radius loop, {how} (seed "
+              f"{inverse.RADIUS_SEED['cuda']}): {inverse.RADIUS_STEPS} steps "
+              f"from {inverse.RADIUS_START} end at {radius:.5f} (true "
+              f"{radius_true:.5f}), {radius_ms:.2f} ms per step, "
+              f"{radius_launches[1]} kernel runs, {radius_launches[0]} "
+              f"through the Python launcher ({card})")
+        print(f"[smoke] config 4 albedo loop, {how}: red wall "
+              f"{albedo.tolist()} (true {albedo_true.tolist()}), max err "
+              f"{albedo_err:.4f}, {albedo_ms:.2f} ms per step, "
+              f"{albedo_launches[1]} kernel runs, {albedo_launches[0]} "
+              f"through the Python launcher ({card})")
+        if min(radius_launches[1], albedo_launches[1]) == 0:
+            raise AssertionError("config 4's loops launched no kernel")
+        if not abs(radius - radius_true) < 0.015:
+            raise AssertionError(f"config 4 radius {radius}, true "
+                                 f"{radius_true} ({how})")
+        if not albedo_err < 0.08:
+            raise AssertionError(f"config 4 albedo error {albedo_err} "
+                                 f"({how})")
+    if not (ends["compiled"][0] == ends["eager"][0]
+            and np.array_equal(ends["compiled"][1], ends["eager"][1])):
+        raise AssertionError(f"config 4's loops end at {ends['compiled']} "
+                             f"compiled and {ends['eager']} eager")
+    print(f"[smoke] config 4's loops: compiled and eager end values equal "
+          f"bit for bit ({card})")
+    radius_launches = radius_launches[0]
+    albedo_launches = albedo_launches[0]
+    rparams, rscene, rbh, rrays, rcfg = inverse.radius_setup(dev)
+    rseed = inverse.RADIUS_SEED["cuda"]
+    with torch.no_grad():
+        rtarget = diff.render_radiance(
+            rparams, rscene, rbh, rrays, rcfg,
+            torch.Generator(device=dev).manual_seed(rseed))
+    grad_rows["radius step"], _, _ = grad_step_case(
+        dev, card, "config 4 radius step 32x32 -l 1 -m 2 curved GI",
+        (rparams.replace(bh_radius=torch.full_like(
+            rparams.bh_radius, inverse.RADIUS_START)), rscene, rbh, rrays,
+         rcfg, rtarget, rseed))
+    aparams, ascene, arays, acfg, arow = inverse.albedo_setup(dev)
+    with torch.no_grad():
+        atarget = diff.render_radiance(
+            aparams, ascene, None, arays, acfg,
+            torch.Generator(device=dev).manual_seed(inverse.SEED))
+    astart = aparams.reflectance.clone()
+    astart[arow] = torch.tensor(inverse.ALBEDO_START, device=dev)
+    grad_rows["albedo step"], _, _ = grad_step_case(
+        dev, card, "config 4 albedo step 48x48 -l 1 -m 1 flat direct",
+        (aparams.replace(reflectance=astart), ascene, None, arays, acfg,
+         atarget, inverse.SEED))
+    print(f"[smoke] gradient steps: {json.dumps(grad_rows)}")
 
     # ---- 4d. trace_diff against the kernel's primal: 400 seeded camera
     # rays, curved (the JAX package's rule, tests/test_diff.py:113-127)
@@ -1872,6 +2017,8 @@ def main(argv=None):
         "render_launch_bound_ms": [w["bound_ms"] for w in render_rows],
         "old_vs_new_ms": turns or None,
         "diff_launches": diff_launches,
+        "grad_step_replay_runs": {k: r_["replay_kernel_runs"]
+                                  for k, r_ in grad_rows.items()},
         "env_launches": env_launches,
         "config4_launches": radius_launches + albedo_launches,
         "lifecycle_launches": life["launches"],

@@ -34,9 +34,11 @@ reached, +SUP per supercluster reached, +CS_K per cluster swept, and for
 the live spheres +1 for the sphere-union slab and +SL when it is reached.
 
 The march uses the JAX kernel's op forms (`march`, `trace_kernel.py:
-802-862`) with cos Δθ and sin Δθ computed once on the host in float32, so
-the kernel, built with --fmad=false and IEEE division and square root,
-and `trace_rays_reference` agree bit for bit on calm lanes.
+802-862`) with cos Δθ and sin Δθ computed once in float32 (on the host by
+`build_tables`; on the tables' device by `with_hole`, the differentiable
+path's), so the kernel, built with --fmad=false and IEEE division and
+square root, and `trace_rays_reference` read the same row and agree bit
+for bit on calm lanes.
 """
 from __future__ import annotations
 
@@ -235,6 +237,37 @@ def build_tables(scene: SceneData, bh: Optional[BlackHoleParams]
         n_parts=n_parts, spp=K_pad // n_parts // SUP, cs_k=cs,
         n_live_sph=S if n_live < 0 else min(n_live, S),
         n_tri_rows=T_pad, curved=curved, n_seg=n_seg)
+
+
+def hole_row(bh: Optional[BlackHoleParams], device) -> torch.Tensor:
+    """The hole's row of `TraceTables.params` (`params[:P_GLO]`: position,
+    radius, Δθ, cos Δθ, sin Δθ) in float32 on `device`, from the hole's
+    live values and without a host read, so that a captured step builds it
+    inside its graph; zeros for a hole that is None or disabled. On the
+    CPU it equals `build_tables`' row bit for bit; on a card cos and sin
+    are the card's."""
+    f32 = torch.float32
+    if bh is None or not bh.enabled:
+        return torch.zeros(P_GLO, dtype=f32, device=device)
+    dt = bh.delta_theta.detach().to(device, f32).reshape(())
+    return torch.cat([bh.position.detach().to(device, f32).reshape(3),
+                      bh.radius.detach().to(device, f32).reshape(1),
+                      dt.reshape(1), torch.cos(dt).reshape(1),
+                      torch.sin(dt).reshape(1)])
+
+
+def with_hole(tab: TraceTables, bh: Optional[BlackHoleParams],
+              n_seg: int) -> TraceTables:
+    """`tab` with the hole's row rewritten on the device (`hole_row`) and
+    the mode set: curved with `n_seg` chords for a hole that is given and
+    enabled, else flat. Every other table is geometry, which no hole
+    changes, so a caller whose hole moves builds `tab` once (e.g.
+    `build_tables(scene, None)`) and calls this on every evaluation."""
+    curved = bh is not None and bh.enabled
+    params = torch.cat([hole_row(bh, tab.params.device),
+                        tab.params[P_GLO:]])
+    return dataclasses.replace(tab, params=params, curved=curved,
+                               n_seg=n_seg if curved else 1)
 
 
 # ---------------------------------------------------------------- plain

@@ -13,7 +13,14 @@ coins, CDF inversion and visibility carry none.
 
 `train_step` is the inverse-rendering step: the L2 image loss against a
 target, its gradient over the leaves, one SGD update on the
-`nan_to_num`'d gradient.
+`nan_to_num`'d gradient. `LossAndGrad` is the step compiled, the
+counterpart of `jax.jit(jax.value_and_grad(image_loss))` and of a jitted
+`train_step`: on a card one CUDA graph, captured at its second call,
+runs the forward estimate, the backward pass and the update at every
+later call. It builds the traversal's geometry tables once
+(`render_radiance` and `image_loss` build them per call unless given
+`tables`); every evaluation, eager or compiled, writes the hole's row
+from the leaves on the device (`trace_kernel.with_hole`).
 
 Random numbers come from the caller's `torch.Generator`. An objective
 evaluated again with "the same key" takes a fresh generator with the same
@@ -36,13 +43,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rrt_tpu_torch.ops.trace_kernel import build_tables
+from rrt_tpu_torch.ops.trace_kernel import (TraceTables, build_tables,
+                                            with_hole)
 from rrt_tpu_torch.parallel import distributed as pdist
 from rrt_tpu_torch.parallel.sharding import LaneWindow, shard_bounds
 from rrt_tpu_torch.physics.schwarzschild import n_segments
 from rrt_tpu_torch.render.integrator import est_radiance
 from rrt_tpu_torch.types import BlackHoleParams, Rays, SceneData, _Tensors
 from rrt_tpu_torch.utils.config import RenderConfig
+from rrt_tpu_torch.utils.graphs import CapturedCall
 
 
 @dataclasses.dataclass
@@ -97,10 +106,14 @@ def params_from_arrays(d: dict, device) -> SceneParams:
 
 
 def bind_params(scene: SceneData, bh: Optional[BlackHoleParams],
-                p: SceneParams):
+                p: SceneParams, tables: TraceTables, n_seg: int):
     """The scene and hole with the leaves of `p` bound in, and the
-    traversal's tables built from their detached values (the tables
-    depend on the hole). Returns (scene, hole, tables)."""
+    traversal's tables: `tables`, the scene's geometry
+    (`build_tables(scene, None)`), with the hole's row written from the
+    leaves' detached values on the device and `n_seg` chords
+    (`trace_kernel.with_hole`). Nothing is read back to the host, so a
+    captured step binds them inside its graph. Returns (scene, hole,
+    tables)."""
     scene2 = scene.replace(
         bsdfs=scene.bsdfs.replace(
             reflectance=p.reflectance, transmittance=p.transmittance,
@@ -112,22 +125,24 @@ def bind_params(scene: SceneData, bh: Optional[BlackHoleParams],
         bh2 = BlackHoleParams(position=p.bh_position, radius=p.bh_radius,
                               delta_theta=p.bh_delta_theta,
                               enabled=bh.enabled)
-    return scene2, bh2, build_tables(scene2, bh2)
+    return scene2, bh2, with_hole(tables, bh2, n_seg)
 
 
 def render_radiance(params: SceneParams, scene: SceneData,
                     bh: Optional[BlackHoleParams], rays: Rays,
                     cfg: RenderConfig, gen: torch.Generator,
-                    with_work: bool = False):
+                    with_work: bool = False,
+                    tables: Optional[TraceTables] = None):
     """Differentiable radiance (..., 3) of a ray batch; with `with_work`
     also the integrator's `TraceWork` (the kernel's counters and trace
     calls). The chord count is the config's nominal Δθ's, so that a Δθ
-    under optimisation does not change it."""
+    under optimisation does not change it. `tables` are the scene's
+    geometry tables, `build_tables(scene, None)`; they are made here when
+    not given."""
     cfg = cfg.replace(differentiable=True)
-    scene2, bh2, tab = bind_params(scene, bh, params)
-    if tab.curved:
-        tab = dataclasses.replace(
-            tab, n_seg=n_segments(cfg.black_hole.delta_theta))
+    geometry = build_tables(scene, None) if tables is None else tables
+    scene2, bh2, tab = bind_params(scene, bh, params, geometry,
+                                   n_segments(cfg.black_hole.delta_theta))
     L, work = est_radiance(scene2, bh2, rays, cfg, gen, tab)
     return (L, work) if with_work else L
 
@@ -135,32 +150,38 @@ def render_radiance(params: SceneParams, scene: SceneData,
 def image_loss(params: SceneParams, scene: SceneData,
                bh: Optional[BlackHoleParams], rays: Rays,
                target: torch.Tensor, cfg: RenderConfig,
-               gen: torch.Generator, mesh=None) -> torch.Tensor:
+               gen: torch.Generator, mesh=None,
+               tables: Optional[TraceTables] = None,
+               with_work: bool = False):
     """Mean L2 loss between the rendered radiance and a target batch; with
-    `mesh`, this rank's share of it (the shares sum to the loss)."""
+    `mesh`, this rank's share of it (the shares sum to the loss). With
+    `with_work` also the integrator's `TraceWork`; `tables` as
+    `render_radiance`'s."""
     if mesh is None:
-        img = render_radiance(params, scene, bh, rays, cfg, gen)
-        return torch.mean((img - target) ** 2)
+        img, work = render_radiance(params, scene, bh, rays, cfg, gen, True,
+                                    tables)
+        loss = torch.mean((img - target) ** 2)
+        return (loss, work) if with_work else loss
     n = rays.min_t.shape[0]
     lo, hi = shard_bounds(n, mesh.rank, mesh.world)
     lo, hi = min(lo, n), min(hi, n)
     block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi], min_t=rays.min_t[lo:hi],
                  max_t=rays.max_t[lo:hi])
-    img = render_radiance(params, scene, bh, block, cfg,
-                          LaneWindow(gen, lo, hi, n))
-    return torch.sum((img - target[lo:hi]) ** 2) / target.numel()
+    img, work = render_radiance(params, scene, bh, block, cfg,
+                                LaneWindow(gen, lo, hi, n), True, tables)
+    loss = torch.sum((img - target[lo:hi]) ** 2) / target.numel()
+    return (loss, work) if with_work else loss
 
 
-def loss_and_grad(params: SceneParams, scene: SceneData,
-                  bh: Optional[BlackHoleParams], rays: Rays,
-                  target: torch.Tensor, cfg: RenderConfig,
-                  gen: torch.Generator, mesh=None):
-    """(loss, gradient as SceneParams) of `image_loss`; a leaf the loss
-    does not reach gets a zero gradient. With `mesh` both are summed over
-    the ranks after each rank's own backward pass."""
-    leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
-    loss = image_loss(SceneParams.from_leaves(leaves), scene, bh, rays,
-                      target, cfg, gen, mesh)
+def _value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
+                    tables):
+    """(loss, gradients, trace calls) of `image_loss` at `leaves`, tensors
+    that require grad; a leaf the loss does not reach gets a zero
+    gradient. With `mesh` the loss and the gradients are summed over the
+    ranks after each rank's own backward pass. The eager and the compiled
+    step both run this."""
+    loss, work = image_loss(SceneParams.from_leaves(leaves), scene, bh,
+                            rays, target, cfg, gen, mesh, tables, True)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     loss = loss.detach()
     grads = [torch.zeros_like(x) if g is None else g
@@ -171,16 +192,158 @@ def loss_and_grad(params: SceneParams, scene: SceneData,
         loss = flat[0]
         parts = flat[1:].split([g.numel() for g in grads])
         grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
+    return loss, grads, work.calls
+
+
+def _sgd(leaves, grads, lr):
+    """p − lr · nan_to_num(g) for every leaf; `lr` a number or a 0-d
+    tensor (the same float32 product either way)."""
+    return [p.detach() - lr * torch.nan_to_num(g)
+            for p, g in zip(leaves, grads)]
+
+
+def loss_and_grad(params: SceneParams, scene: SceneData,
+                  bh: Optional[BlackHoleParams], rays: Rays,
+                  target: torch.Tensor, cfg: RenderConfig,
+                  gen: torch.Generator, mesh=None):
+    """(loss, gradient as SceneParams) of `image_loss`, eagerly; a leaf the
+    loss does not reach gets a zero gradient. With `mesh` both are summed
+    over the ranks after each rank's own backward pass. `LossAndGrad` is
+    the compiled form."""
+    leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
+    loss, grads, _ = _value_and_grad(leaves, scene, bh, rays, target, cfg,
+                                     gen, mesh, None)
     return loss, SceneParams.from_leaves(grads)
 
 
 def train_step(params: SceneParams, opt_state, scene: SceneData,
                bh: Optional[BlackHoleParams], rays: Rays, target, cfg,
-               gen: torch.Generator, lr: float = 1e-2, mesh=None):
+               gen: torch.Generator, lr: float = 1e-2, mesh=None,
+               step: Optional["LossAndGrad"] = None):
     """One inverse-rendering SGD step on the `nan_to_num`'d gradient
-    (summed over the ranks of `mesh`). Returns (params, opt_state,
-    loss)."""
+    (summed over the ranks of `mesh`). With `step`, a `LossAndGrad` built
+    for this scene, hole, config and mesh, the step's compiled update runs
+    on `rays` and `target` instead of the eager one, with the same
+    results. Returns (params, opt_state, loss)."""
+    if step is not None:
+        if (step.scene is not scene or step.bh is not bh
+                or step.cfg != cfg or step.mesh is not mesh):
+            raise ValueError("the step was built for another scene, hole, "
+                             "config or mesh")
+        return step.train_step(params, opt_state, gen, lr, rays, target)
     loss, g = loss_and_grad(params, scene, bh, rays, target, cfg, gen, mesh)
-    new = [(p.detach() - lr * torch.nan_to_num(d))
-           for p, d in zip(params.leaves(), g.leaves())]
-    return SceneParams.from_leaves(new), opt_state, loss
+    return SceneParams.from_leaves(_sgd(params.leaves(), g.leaves(), lr)), \
+        opt_state, loss
+
+
+class LossAndGrad:
+    """The compiled gradient step: the port's counterpart of
+    `jax.jit(jax.value_and_grad(image_loss))` and of a jitted
+    `train_step`, built once for a scene, a hole, a config and a ray
+    batch (whose shape and device it keeps).
+
+    Static buffers: the eleven leaves (made once, requiring grad), the
+    rays, the target, a 0-d `lr`, and the outputs: the loss, the eleven
+    gradients and the eleven updated leaves. The traversal's geometry
+    tables are built once; every evaluation writes the hole's row from the
+    leaves on the device (`bind_params`). A call copies the caller's
+    params (and rays and target, when given) into the buffers and the
+    caller's generator's state into the step's own generator; it runs the
+    forward estimate, `torch.autograd.grad` over the leaves and the
+    `nan_to_num`'d SGD update, hands the generator's advanced state back,
+    and returns copies (a caller may keep an earlier step's results). So
+    the step draws what the eager step draws from the same generator, and
+    a fresh generator of one seed at every call evaluates one objective.
+
+    With `graphs` (the default on a card) the step is a `CapturedCall`:
+    the first call runs eagerly on a side stream, the second is captured
+    and replayed, later calls replay; its generator is registered with the
+    graph. Without graphs (the CPU, `graphs=False`, or `mesh=`) every call
+    runs the same step eagerly. With `mesh` the step runs eagerly only:
+    gloo's collectives cannot be captured, so asking for graphs with a mesh
+    raises, as `Renderer(sharding=..., graphs=True)` does."""
+
+    def __init__(self, scene: SceneData, bh: Optional[BlackHoleParams],
+                 cfg: RenderConfig, rays: Rays, target: torch.Tensor,
+                 graphs: Optional[bool] = None, mesh=None):
+        dev = scene.device
+        if graphs and mesh is not None:
+            raise ValueError("a step with mesh= runs eagerly: its "
+                             "collectives cannot be captured in a CUDA graph")
+        if graphs and dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+        can = dev.type == "cuda" and mesh is None
+        self.graphs = can if graphs is None else bool(graphs)
+        self.scene, self.bh, self.cfg, self.mesh = scene, bh, cfg, mesh
+        self.tables = build_tables(scene, None)
+        self.leaves = [x.detach().clone().requires_grad_(True)
+                       for x in params_from_scene(scene, bh).leaves()]
+        self.rays = Rays(o=rays.o.clone(), d=rays.d.clone(),
+                         min_t=rays.min_t.clone(), max_t=rays.max_t.clone())
+        self.target = target.detach().clone()
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        # the outputs: loss, gradients, updated leaves
+        self.out = [torch.zeros((), dtype=torch.float32, device=dev)] + [
+            torch.zeros_like(x) for x in self.leaves * 2]
+        self.gen = torch.Generator(device=dev)
+        self.call = None          # the CapturedCall, made at the first call
+        self.trace_calls = 0      # trace calls of one evaluation
+
+    def _run(self, out) -> int:
+        """One step on the static buffers, its results written into `out`;
+        returns its trace calls."""
+        loss, grads, calls = _value_and_grad(
+            self.leaves, self.scene, self.bh, self.rays, self.target,
+            self.cfg, self.gen, self.mesh, self.tables)
+        for buf, v in zip(out, [loss, *grads,
+                                *_sgd(self.leaves, grads, self.lr)]):
+            buf.copy_(v)
+        return calls
+
+    def _step(self, params: SceneParams, gen: torch.Generator, lr,
+              rays: Optional[Rays], target: Optional[torch.Tensor]):
+        with torch.no_grad():
+            for name, buf, x in zip(
+                    [f.name for f in dataclasses.fields(SceneParams)],
+                    self.leaves, params.leaves()):
+                if tuple(x.shape) != tuple(buf.shape):
+                    raise ValueError(f"{name}: shape {tuple(x.shape)}, the "
+                                     f"step's is {tuple(buf.shape)}")
+                buf.copy_(x)
+            if rays is not None:
+                for name in ("o", "d", "min_t", "max_t"):
+                    getattr(self.rays, name).copy_(getattr(rays, name))
+            if target is not None:
+                self.target.copy_(target)
+            self.lr.fill_(lr)
+        self.gen.set_state(gen.get_state())
+        if not self.graphs:
+            self.trace_calls = self._run(self.out)
+        else:
+            if self.call is None:
+                self.call = CapturedCall(
+                    LossAndGrad._run, self.scene.device,
+                    generators=(self.gen,), name="the gradient step")
+            self.trace_calls = self.call(self, self.out)
+        gen.set_state(self.gen.get_state())
+        n = len(self.leaves)
+        out = [b.clone() for b in self.out]
+        return (out[0], SceneParams.from_leaves(out[1:1 + n]),
+                SceneParams.from_leaves(out[1 + n:]))
+
+    def __call__(self, params: SceneParams, gen: torch.Generator,
+                 rays: Optional[Rays] = None,
+                 target: Optional[torch.Tensor] = None):
+        """(loss, gradient as SceneParams) at `params`, as `loss_and_grad`
+        gives them; `rays` and `target` replace the step's when given."""
+        loss, grads, _ = self._step(params, gen, 0.0, rays, target)
+        return loss, grads
+
+    def train_step(self, params: SceneParams, opt_state,
+                   gen: torch.Generator, lr: float = 1e-2,
+                   rays: Optional[Rays] = None,
+                   target: Optional[torch.Tensor] = None):
+        """(params, opt_state, loss) of one SGD step, as `train_step`
+        gives them."""
+        loss, _, new = self._step(params, gen, lr, rays, target)
+        return new, opt_state, loss

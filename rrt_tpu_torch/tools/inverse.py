@@ -28,10 +28,14 @@ otherwise config 4's:
   seed `SEED`.
 
 Every loss evaluation takes a fresh generator of the same seed, so that
-the objective is deterministic. `python3 chip_smoke.py` runs both loops on
-the card; `python -m rrt_tpu_torch.tools.inverse [--device D] [--seeds S
-...] [--frame F]` prints the sweep, the radius loop for each seed and the
-albedo loop.
+the objective is deterministic. Each loop (and the sweep) runs its steps
+through one `diff.LossAndGrad`: on a card its first step runs eagerly,
+its second is captured as a CUDA graph, and every later step replays it
+(the counterpart of the jitted `value_and_grad` of tests/test_inverse.py);
+with `graphs=False` every step runs eagerly, with the same results.
+`python3 chip_smoke.py` runs both loops on the card both ways; `python -m
+rrt_tpu_torch.tools.inverse [--device D] [--seeds S ...] [--frame F]`
+prints the sweep, the radius loop for each seed and the albedo loop.
 """
 from __future__ import annotations
 
@@ -71,7 +75,7 @@ def _gen(device, seed):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _radius_setup(device):
+def radius_setup(device):
     """(params, scene, hole, rays, cfg) of the radius loop."""
     w = h = 32
     cfg = RenderConfig(width=w, height=h, ns_aa=1, ns_area_light=1,
@@ -82,19 +86,22 @@ def _radius_setup(device):
             pixel_rays(cam, w, h, device, RADIUS_FRAME), cfg)
 
 
-def _loop(params, scene, bh, rays, cfg, device, steps, update, seed):
+def _loop(params, scene, bh, rays, cfg, device, steps, update, seed,
+          graphs=None):
     """Render the target from `params`, then `steps` gradient steps from
-    `update(params)`'s start, each followed by `update(params, grads)`."""
+    `update(params)`'s start through one `diff.LossAndGrad` (on a card a
+    CUDA graph captured at its second step, unless `graphs` is False),
+    each followed by `update(params, grads)`."""
     with torch.no_grad():
         target = diff.render_radiance(params, scene, bh, rays, cfg,
                                       _gen(device, seed))
+    step = diff.LossAndGrad(scene, bh, cfg, rays, target, graphs=graphs)
     p = update(params, None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for _ in range(steps):
-        _, g = diff.loss_and_grad(p, scene, bh, rays, target, cfg,
-                                  _gen(device, seed))
+        _, g = step(p, _gen(device, seed))
         p = update(p, g)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -105,12 +112,12 @@ def _radius_seed(device, seed):
     return RADIUS_SEED[device.type] if seed is None else seed
 
 
-def recover_radius(device, seed=None):
+def recover_radius(device, seed=None, graphs=None):
     """Returns (recovered radius, true radius, ms per step); `seed`
-    defaults to the device's `RADIUS_SEED`."""
+    defaults to the device's `RADIUS_SEED`; `graphs` as `_loop`'s."""
     device = torch.device(device)
     seed = _radius_seed(device, seed)
-    params, scene, bh, rays, cfg = _radius_setup(device)
+    params, scene, bh, rays, cfg = radius_setup(device)
 
     def update(p, g):
         r = (torch.full_like(p.bh_radius, RADIUS_START) if g is None
@@ -118,43 +125,51 @@ def recover_radius(device, seed=None):
                               *RADIUS_CLIP))
         return p.replace(bh_radius=r)
     p, ms = _loop(params, scene, bh, rays, cfg, device, RADIUS_STEPS,
-                  update, seed)
+                  update, seed, graphs)
     return float(p.bh_radius), float(params.bh_radius), ms
 
 
 def radius_sweep(device, radii, seed=None):
     """The radius loop's loss and its autodiff gradient at each radius:
-    a list of (radius, loss, d loss / d radius)."""
+    a list of (radius, loss, d loss / d radius), all through one
+    `diff.LossAndGrad`."""
     device = torch.device(device)
     seed = _radius_seed(device, seed)
-    params, scene, bh, rays, cfg = _radius_setup(device)
+    params, scene, bh, rays, cfg = radius_setup(device)
     with torch.no_grad():
         target = diff.render_radiance(params, scene, bh, rays, cfg,
                                       _gen(device, seed))
+    step = diff.LossAndGrad(scene, bh, cfg, rays, target)
     rows = []
     for r in radii:
         p = params.replace(bh_radius=torch.full_like(params.bh_radius, r))
-        loss, g = diff.loss_and_grad(p, scene, bh, rays, target, cfg,
-                                     _gen(device, seed))
+        loss, g = step(p, _gen(device, seed))
         rows.append((float(r), float(loss), float(g.bh_radius)))
     return rows
 
 
-def recover_albedo(device, seed: int = SEED):
-    """Returns (recovered row, true row, ms per step) of the red wall."""
-    device = torch.device(device)
+def albedo_setup(device):
+    """(params, scene, rays, cfg, row) of the albedo loop: flat direct
+    light at 48×48, and the red wall's row of the reflectance table."""
     w = h = 48
     cfg = RenderConfig(width=w, height=h, ns_aa=1, ns_area_light=1,
                        max_ray_depth=1, seed=0, illum=Illum.DIRECT,
                        black_hole=BlackHoleConfig(enabled=False))
     scene, cam = load_scene(CBOX_SPHERES, device, w, h, fov_mode="native")
     params = diff.params_from_scene(scene, None)
-    refl = params.reflectance
     rows = torch.nonzero(torch.all(torch.isclose(
-        refl, torch.tensor(RED_WALL, device=device)), dim=-1))
+        params.reflectance, torch.tensor(RED_WALL, device=device)), dim=-1))
     if rows.shape[0] != 1:
         raise ValueError(f"{rows.shape[0]} rows of reflectance {RED_WALL}")
-    row = int(rows[0, 0])
+    return (params, scene, pixel_rays(cam, w, h, device, ALBEDO_FRAME), cfg,
+            int(rows[0, 0]))
+
+
+def recover_albedo(device, seed: int = SEED, graphs=None):
+    """Returns (recovered row, true row, ms per step) of the red wall;
+    `graphs` as `_loop`'s."""
+    device = torch.device(device)
+    params, scene, rays, cfg, row = albedo_setup(device)
 
     def update(p, g):
         if g is None:
@@ -164,9 +179,8 @@ def recover_albedo(device, seed: int = SEED):
             r = torch.clamp(p.reflectance - ALBEDO_LR * g.reflectance, 0.0,
                             1.0)
         return p.replace(reflectance=r)
-    p, ms = _loop(params, scene, None,
-                  pixel_rays(cam, w, h, device, ALBEDO_FRAME),
-                  cfg, device, ALBEDO_STEPS, update, seed)
+    p, ms = _loop(params, scene, None, rays, cfg, device, ALBEDO_STEPS,
+                  update, seed, graphs)
     return (p.reflectance[row].cpu().numpy(),
             np.asarray(RED_WALL, np.float32), ms)
 

@@ -5,7 +5,8 @@ lanes, a scene whose box tables do not fit in shared memory, launches
 back to back, each in the default build and in the builds that fix its
 traversal lane by lane and cooperative), the differentiable trace on the
 kernel's primal against the CPU's, the toolchain probe and the eight cost
-micro-probes.
+micro-probes; the passes, Kerr's march blocks and the gradient step
+captured as CUDA graphs against their eager runs.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -433,6 +434,48 @@ def test_kerr_march_blocks_equal_eager(device):
     img = K.render_image(32, 32, bh, disk, n_steps=130, device=device)
     np.testing.assert_array_equal(img, K.render_image(
         32, 32, bh, disk, n_steps=130, device=device, graphs=False))
+
+
+@pytest.mark.cuda
+def test_compiled_gradient_step_equals_eager(device):
+    """The gradient step captured as a CUDA graph (`diff.LossAndGrad`) at
+    64×64 curved global illumination (-l 1, -m 2), over three steps (the
+    eager warm-up, the capture and its replay, a replay) with the radius
+    and the reflectance moved and a new seed at each: loss and all eleven
+    gradients equal the eager `loss_and_grad` bit for bit, and the
+    caller's generator is left where the eager step leaves it. The
+    kernel's own count of its runs equals the step's trace calls at every
+    step, and a replayed step launches nothing through Python."""
+    from rrt_tpu_torch.render import diff
+    from rrt_tpu_torch.render.renderer import make_black_hole
+    from rrt_tpu_torch.tools.inverse import RADIUS_FRAME, pixel_rays
+    from rrt_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig(width=64, height=64, ns_aa=1, ns_area_light=1,
+                       max_ray_depth=2, seed=0)
+    scene, cam = load_scene(CBOX_SPHERES, device, 64, 64, fov_mode="native")
+    bh = make_black_hole(cfg, device)
+    rays = pixel_rays(cam, 64, 64, device, RADIUS_FRAME)
+    params = diff.params_from_scene(scene, bh)
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        target = diff.render_radiance(params, scene, bh, rays, cfg, gen(9))
+    step = diff.LossAndGrad(scene, bh, cfg, rays, target)
+    assert step.graphs
+    for i in range(3):
+        p = params.replace(bh_radius=params.bh_radius + 0.004 * i,
+                           reflectance=params.reflectance * (1 - 0.05 * i))
+        ge, gc = gen(i), gen(i)
+        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, ge)
+        tk.reset_counts()
+        got = step(p, gc)
+        assert tk.kernel_runs() == step.trace_calls > 0
+        assert tk.LAUNCHES == (step.trace_calls if i == 0 else 0)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1].leaves(), want[1].leaves()):
+            assert torch.equal(a, b)
+        assert torch.equal(ge.get_state(), gc.get_state())
+    assert step.call.replays == 2
+    assert want[1].bh_radius.abs() > 0
 
 
 @pytest.mark.cuda
