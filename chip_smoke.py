@@ -90,17 +90,26 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    a 32×32, 300-step render on the card against the CPU (≥ 99% of lanes
    agree on the disk and escape masks, radiance to rtol 1e-3 there);
 4j. the lane-sharded main path on a world of 1 over NCCL
-   (`parallel.distributed.initialize`): `Renderer(sharding=)` at
-   256×256, 16 spp, -l 4, -m 5 equal to the unsharded render bit for bit,
-   launches equal to trace calls, both renders' warm walls in turns;
-   `trace`/`occluded(mesh=)` on 65,536 seeded rays equal to the unsharded
-   queries; phase 4b's gradient step with `mesh=` (rtol 1e-4 on the
-   material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at 64×64,
-   300 steps (rtol 1e-6);
+   (`parallel.distributed.initialize`), compiled: `Renderer(sharding=)`
+   with each pass's rank half and accumulate half captured as CUDA graphs
+   and the gather between them, against the eager sharded renderer and
+   the unsharded graph renderer, bit for bit, with the kernel's runs
+   equal to the trace calls, at 256×256, 16 spp, -l 4, -m 5, with a tail
+   pass and adaptive (walls in turns, host launches a pass, busy share,
+   capture seconds, pool); `trace`/`occluded(mesh=)` on 65,536 seeded rays
+   equal to the unsharded queries; phase 4b's gradient step through
+   `LossAndGrad(mesh=)`, compiled (two graphs around the all-reduce)
+   against eager bit for bit, and against the unsharded step (rtol 1e-4
+   on the material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at
+   64×64, 300 steps in captured blocks, equal bit for bit to the sharded
+   march step by step and to the unsharded CLI;
 4k. two ranks of `rrt_tpu_torch.parallel.worker` on the one card over
-   gloo at 255×255 (an odd lane count): the blocks tile the frame, the
-   forward equals the whole frame's rows and the sharded render this
-   process's single-process render bit for bit; each rank's times;
+   gloo at 255×255 (an odd lane count), with graphs around the
+   collectives: the blocks tile the frame, the forward equals the whole
+   frame's rows and the sharded render this process's single-process
+   render bit for bit; the compiled sharded step equals the eager one and
+   the two ranks' shares summed in this process bit for bit; the kernel's
+   runs equal the trace calls in each rank; each rank's times;
 4l. the tools: `scaling_bench --card` (sharded against unsharded, in
    turns), `run_config` configs 1-3 (the box at 256² 4 spp direct;
    `cbox_dense` and the mirror and glass box at 512² 64 spp, -m 5 -l 1:
@@ -129,9 +138,9 @@ Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 4j, 4k, 4l, 4m, 5, 6) is driven
 with the kernels' launch counts set to 0 just before it and read just
 after: every kernel of the path must have launched in it. A replayed CUDA
 graph runs the trace kernel without its Python wrapper, so on the paths
-that replay (4f, 4l, 4m, 5) the trace kernel's count is the one the kernel
-keeps on the device (`trace_kernel.kernel_runs`: one for each run, launched
-or replayed), and it must equal the trace calls.
+that replay (4f, 4j, 4k, 4l, 4m, 5) the trace kernel's count is the one
+the kernel keeps on the device (`trace_kernel.kernel_runs`: one for each
+run, launched or replayed), and it must equal the trace calls.
 
 Any failure raises, and the script exits non-zero without the ok line.
 """
@@ -677,7 +686,7 @@ def _spread(xs):
             f"[{min(xs):.4f}, {max(xs):.4f}]")
 
 
-def grad_step_case(dev, card, name, problem, reps=5, ranges=()):
+def grad_step_case(dev, card, name, problem, reps=5, ranges=(), mesh=None):
     """One inverse-rendering step of `problem` = (params, scene, hole,
     rays, cfg, target, seed) through `diff.LossAndGrad`, eagerly
     (`graphs=False`) and compiled (a CUDA graph captured at its second
@@ -690,7 +699,8 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=()):
     (`ranges` split the eager one's device time); peak memory above the
     case's start, eager and at the capture; the capture seconds and the
     graph pool's reserved MiB. Returns (row, the eager (loss, grads), the
-    eager step's profile)."""
+    eager step's profile). With `mesh`, the sharded step: its two halves
+    captured around the all-reduce, the capture seconds of both."""
     import gc
     import torch
     from rrt_tpu_torch.ops import trace_kernel as tk
@@ -702,7 +712,8 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=()):
     mib = 2 ** 20
     t_case = time.perf_counter()
     held = torch.cuda.memory_allocated(dev) / mib
-    steps = {g: diff.LossAndGrad(scene, bh, cfg, rays, target, graphs=g)
+    steps = {g: diff.LossAndGrad(scene, bh, cfg, rays, target, graphs=g,
+                                 mesh=mesh)
              for g in (False, True)}
 
     def same(a, b):
@@ -746,6 +757,8 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=()):
             for g in (False, True)}
     call = steps[True].call
     capture, replays = call.capture_seconds, call.replays
+    if mesh is not None:
+        capture += steps[True].update.capture_seconds
     trace_calls = steps[True].trace_calls
     # the graph's memory pool: what the compiled step keeps reserved, the
     # eager step and the cached blocks gone, against the same without it
@@ -1129,15 +1142,147 @@ def first_frame_phase(parent, card, reps=4):
     return out
 
 
+def sharded_render_case(dev, card, name, scene, cam, cfg, sharding, reps=3):
+    """One sharded render of phase 4j on a world of 1: `Renderer(sharding=)`
+    with graphs (each pass shape's rank half and accumulate half captured
+    at its second pass, the gather between them eagerly) against the eager
+    sharded renderer (`graphs=False`), the reference, and the unsharded
+    graph renderer, bit for bit in accumulators, counters, trace calls and
+    samples done, at every render; the kernel's runs equal to the trace
+    calls in every render, and no Python launch in a steady graph render.
+    Walls in turns (`reps` each), host launches a pass and the busy share
+    of a profiled render of each, the collectives of a steady sharded
+    graph render, the capture seconds of both halves and the sharded graph
+    renderer's pool."""
+    import gc
+    import torch
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.utils.profile import passes_run, profile_call
+
+    mib = 2 ** 20
+    t_case = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev) / mib
+    labels = ("eager sharded", "graph sharded", "graph unsharded")
+    rs = {"eager sharded": Renderer(scene, cam, cfg, dev, sharding=sharding,
+                                    graphs=False),
+          "graph sharded": Renderer(scene, cam, cfg, dev, sharding=sharding),
+          "graph unsharded": Renderer(scene, cam, cfg, dev)}
+
+    def run(r):
+        r.render()
+        return [*r.last_accumulators, r.last_trace_tests,
+                np.array([r.last_trace_calls, r.samples_done])]
+
+    steady = False
+
+    def counted(label):
+        tk.reset_counts()
+        w, got, peak = _timed_call(dev, lambda: run(rs[label]))
+        calls = rs[label].last_trace_calls
+        if tk.kernel_runs() != calls or calls == 0:
+            raise AssertionError(f"sharded graphs, {name}: {tk.kernel_runs()}"
+                                 f" kernel runs for {calls} trace calls "
+                                 f"({label})")
+        if steady and rs[label].graphs and tk.LAUNCHES:
+            raise AssertionError(f"sharded graphs, {name}: {tk.LAUNCHES} "
+                                 f"eager launches in a replayed render "
+                                 f"({label})")
+        return w, got, peak
+
+    _, ref, ref_peak = counted("eager sharded")
+    equal, first, second, cap_peak = [], {}, {}, {}
+    for label in labels[1:]:        # the shapes' eager passes, captures
+        first[label], got, p1 = counted(label)
+        equal.append(all(np.array_equal(a, b) for a, b in zip(got, ref)))
+        second[label], got, p2 = counted(label)
+        equal.append(all(np.array_equal(a, b) for a, b in zip(got, ref)))
+        cap_peak[label] = max(p1, p2) - held
+    steady = True
+    walls = {label: [] for label in labels}
+    for label in (labels + labels[::-1]) * ((reps + 1) // 2):
+        if len(walls[label]) == reps:
+            continue
+        w, got, _ = counted(label)
+        walls[label].append(w)
+        equal.append(all(np.array_equal(a, b) for a, b in zip(got, ref)))
+    # a steady sharded graph render: its collectives, and the kernel's
+    # runs (every pass replayed) against its trace calls
+    tk.reset_counts()
+    pdist.COLLECTIVES.update(calls=0, bytes=0)
+    run(rs["graph sharded"])
+    collectives = dict(pdist.COLLECTIVES)
+    runs, calls = tk.kernel_runs(), rs["graph sharded"].last_trace_calls
+    if runs != calls or tk.LAUNCHES:
+        raise AssertionError(f"sharded graphs, {name}: {runs} kernel runs "
+                             f"and {tk.LAUNCHES} eager launches for {calls} "
+                             f"trace calls")
+    prof = {}
+    for label, r in rs.items():
+        before = passes_run(r)
+        prof[label] = profile_call(lambda: run(r), device=dev)
+        prof[label].passes = passes_run(r) - before
+    calls_ = [c for p in rs["graph sharded"]._pass_fns.values()
+              for c in (p.call, p.accumulate)]
+    capture = sum(c.capture_seconds for c in calls_)
+    replays = sum(c.replays for c in calls_)
+    # the sharded graph renderer's pool: what it keeps reserved with the
+    # other renderers gone, against the same with it gone too
+    del rs["eager sharded"], rs["graph unsharded"], calls_, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = torch.cuda.memory_reserved(dev) / mib
+    del rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool -= torch.cuda.memory_reserved(dev) / mib
+    row = dict(
+        equal=all(equal), renders=len(equal) + 1, walls=walls,
+        first_graph_render=first, second_graph_render=second,
+        capture_s=capture, replays=replays, collectives=collectives,
+        kernel_runs=runs, trace_calls=calls,
+        peak_mib=dict(eager=ref_peak - held, graph_first=cap_peak),
+        pool_mib=pool,
+        host_launches_per_pass={k: p.host_launches / max(p.passes, 1)
+                                for k, p in prof.items()},
+        busy={k: p.device_ms / (1e3 * p.wall) for k, p in prof.items()},
+        device_ms={k: p.device_ms for k, p in prof.items()},
+        seconds=time.perf_counter() - t_case)
+    print(f"[smoke] sharded graphs, {name} on a world of 1 over nccl: graph "
+          f"sharded = eager sharded = graph unsharded bit for bit "
+          f"{row['equal']} ({row['renders']} renders); walls in turns "
+          + "; ".join(f"{k} {_spread(v)}" for k, v in walls.items())
+          + "; host launches a pass " + ", ".join(
+              f"{k} {v:.1f}" for k, v in
+              row["host_launches_per_pass"].items())
+          + "; busy " + ", ".join(f"{k} {v:.1%}" for k, v in
+                                  row["busy"].items())
+          + f"; capture of both halves {capture:.4f} s, {replays} replays; "
+          f"{collectives['calls']} collectives, {collectives['bytes']} bytes "
+          f"a steady render; peak above the case's start eager "
+          f"{ref_peak - held:.1f} MiB; sharded graph pool {pool:.1f} MiB "
+          f"reserved; case {row['seconds']:.1f} s ({card})")
+    if not row["equal"]:
+        raise AssertionError(f"sharded graphs, {name}: the renders differ")
+    return row
+
+
 def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
                   kerr_size=64, kerr_steps=300):
     """4j: the lane-sharded main path at full width on a world of 1 over
-    NCCL: `Renderer(sharding=)` at 256×256, 16 spp, -l 4, -m 5 (its
-    accumulators equal the unsharded render's bit for bit, launches equal
-    to trace calls, warm walls of both in turns), `trace`/`occluded(mesh=)`
-    on 65,536 seeded rays (equal), phase 4b's gradient step with `mesh=`
-    (rtol 1e-4 on the material leaves, 5e-3 on the hole's) and
-    `kerr_cli --sharded` at 64×64, 300 steps (rtol 1e-6)."""
+    NCCL, compiled: `Renderer(sharding=)` with graphs (the rank half and
+    the accumulate half of each pass captured, the gather between them)
+    against the eager sharded and the unsharded graph renders, bit for
+    bit, on the primary (256×256, 16 spp, -l 4, -m 5), a tail pass and an
+    adaptive render (`sharded_render_case`); `trace`/`occluded(mesh=)` on
+    65,536 seeded rays (the per-trace route, eager; equal); phase 4b's
+    gradient step through `LossAndGrad(mesh=)` compiled (half A and half
+    B around the all-reduce) against eager bit for bit (`grad_step_case`),
+    and the eager sharded step against the unsharded one (rtol 1e-4 on the
+    material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at 64×64,
+    300 steps (the block's march in captured blocks) against the sharded
+    march step by step and the unsharded CLI, bit for bit."""
     import torch
     import torch.distributed as dist
     from rrt_tpu_torch import kerr_cli
@@ -1145,8 +1290,10 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
     from rrt_tpu_torch.ops import trace_kernel as tk
     from rrt_tpu_torch.parallel import distributed as pdist
     from rrt_tpu_torch.parallel import sharding as sh
+    from rrt_tpu_torch.parallel import worker
     from rrt_tpu_torch.render import diff
-    from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
+    from rrt_tpu_torch.render import kerr_scene as K
+    from rrt_tpu_torch.render.renderer import make_black_hole
     from rrt_tpu_torch.scene.build import load_scene
     from rrt_tpu_torch.scenes import CBOX_SPHERES
     from rrt_tpu_torch.tools import inverse
@@ -1163,38 +1310,21 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
         cfg = RenderConfig(width=size, height=size, ns_aa=spp,
                            ns_area_light=4, max_ray_depth=5)
         scene, cam = load_scene(CBOX_SPHERES, dev, size, size)
-        # both eager: the sharded path cannot be captured, and the walls
-        # measure the sharding layer's cost
-        plain_r = Renderer(scene, cam, cfg, dev, graphs=False)
-        shard_r = Renderer(scene, cam, cfg, dev, sharding=sharding)
-        plain_r.render()
-        tk.LAUNCHES = 0
-        pdist.COLLECTIVES.update(calls=0, bytes=0)
-        shard_r.render()
-        torch.cuda.synchronize(dev)
-        out["launches"] = tk.LAUNCHES
-        out["trace_calls"] = shard_r.last_trace_calls
-        out["collectives"] = dict(pdist.COLLECTIVES)
-        if out["launches"] != out["trace_calls"] or out["launches"] == 0:
-            raise AssertionError(f"sharded render: {out['launches']} "
-                                 f"launches for {out['trace_calls']} calls")
-        out["equal"] = all(np.array_equal(a, b) for a, b in zip(
-            shard_r.last_accumulators, plain_r.last_accumulators))
-        if not out["equal"]:
-            raise AssertionError("the sharded render's accumulators differ "
-                                 "from the unsharded render's")
-        walls = {"unsharded": [], "sharded": []}
-        for name in ("unsharded", "sharded", "sharded", "unsharded") * 2:
-            r = plain_r if name == "unsharded" else shard_r
-            walls[name].append(_timed_call(dev, r.render)[0])
-        out["walls"] = walls
-        print(f"[smoke] sharded main path {size}x{size} {spp}spp -l 4 -m 5 "
-              f"on a world of 1 over nccl: accumulators equal to the "
-              f"unsharded render's; {out['launches']} launches = trace "
-              f"calls; {out['collectives']['calls']} collectives, "
-              f"{out['collectives']['bytes']} bytes a render; warm walls "
-              f"(s) unsharded {[round(w, 4) for w in walls['unsharded']]}, "
-              f"sharded {[round(w, 4) for w in walls['sharded']]} ({card})")
+        cases = {
+            f"primary {size}x{size} {spp}spp -l 4 -m 5, one pass": cfg,
+            "tail pass: 10 spp at k=4": cfg.replace(
+                ns_aa=10, max_pass_lanes=4 * size * size),
+            "adaptive -a, batch 4 at k=2": cfg.replace(
+                adaptive=True, samples_per_batch=4,
+                max_pass_lanes=2 * size * size),
+        }
+        out["renders"] = {
+            name: sharded_render_case(dev, card, name, scene, cam, c,
+                                      sharding)
+            for name, c in cases.items()}
+        primary = next(iter(out["renders"].values()))
+        out["launches"] = primary["kernel_runs"]
+        out["trace_calls"] = primary["trace_calls"]
 
         rays = box_rays(n_rays, 11, dev, *BOX)
         bh = make_black_hole(cfg, dev)
@@ -1223,35 +1353,30 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
         drays = inverse.pixel_rays(cam, size, size, dev)
         params = diff.params_from_scene(scene, dbh)
         target = torch.zeros_like(drays.o)
-        grads, glaunch, gwalls = {}, {}, {"unsharded": [], "sharded": []}
-        for name in ("unsharded", "sharded", "sharded", "unsharded"):
-            tk.LAUNCHES = 0
-            t0 = time.perf_counter()
-            loss, g = diff.loss_and_grad(
-                params, scene, dbh, drays, target, dcfg,
-                torch.Generator(device=dev).manual_seed(0),
-                mesh=mesh if name == "sharded" else None)
-            torch.cuda.synchronize(dev)
-            gwalls[name].append(time.perf_counter() - t0)
-            grads[name] = (loss, g)
-            glaunch[name] = tk.LAUNCHES
-        if glaunch["sharded"] != glaunch["unsharded"] or not glaunch["sharded"]:
-            raise AssertionError(f"gradient step launches {glaunch}")
+        row, (loss, g), _ = grad_step_case(
+            dev, card, f"sharded diff step {size}x{size} 1spp -l 4 -m 5 "
+            f"on a world of 1 over nccl",
+            (params, scene, dbh, drays, dcfg, target, 0), reps=3, mesh=mesh)
+        out["grad"] = row
+        out["grad_launches"] = row["replay_kernel_runs"]
+        t0 = time.perf_counter()
+        uloss, ug = diff.loss_and_grad(
+            params, scene, dbh, drays, target, dcfg,
+            torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize(dev)
+        out["unsharded_grad_s"] = time.perf_counter() - t0
         names = [f.name for f in dataclasses.fields(diff.SceneParams)]
         worst = {}
-        for name, a, b in zip(names, grads["sharded"][1].leaves(),
-                              grads["unsharded"][1].leaves()):
+        for name, a, b in zip(names, g.leaves(), ug.leaves()):
             rtol = 5e-3 if name.startswith("bh_") else 1e-4
             if not torch.allclose(a, b, rtol=rtol, atol=1e-7):
                 raise AssertionError(f"sharded gradient of {name} differs")
             worst[name] = float((a - b).abs().max())
-        out["grad_launches"] = glaunch["sharded"]
-        out["grad_s"] = gwalls
-        print(f"[smoke] gradient step {size}x{size} 1spp with mesh=: loss "
-              f"{grads['sharded'][0].item():.6g} (unsharded "
-              f"{grads['unsharded'][0].item():.6g}), every leaf within its "
-              f"rtol, max abs differences {worst}; {glaunch['sharded']} "
-              f"launches; walls in turns (s) {out['grad_s']} ({card})")
+        print(f"[smoke] sharded diff step: loss {loss.item():.6g} "
+              f"(unsharded {uloss.item():.6g}), every leaf within its rtol "
+              f"of the unsharded step's, max abs differences {worst}; the "
+              f"unsharded eager step {out['unsharded_grad_s']:.4f} s "
+              f"({card})")
 
         k_args = ["-r", str(kerr_size), str(kerr_size), "--steps",
                   str(kerr_steps), "--device", "cuda"]
@@ -1259,14 +1384,25 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
         img_s = kerr_cli.main(["-f", os.path.join(tmp, "ks.png"),
                                "--sharded"] + k_args)
         ks_wall = time.perf_counter() - t0
+        kbh, disk, kw, _ = worker.kerr_args(dev, os.path.join(tmp, "k.png"))
+        kw.update(width=kerr_size, height=kerr_size, n_steps=kerr_steps)
+        t0 = time.perf_counter()
+        img_e = K.render_image(bh=kbh, disk=disk, sharding=sharding,
+                               graphs=False, **kw)
+        ke_wall = time.perf_counter() - t0
         img_u = kerr_cli.main(["-f", os.path.join(tmp, "ku.png")] + k_args)
-        if not np.allclose(img_s, img_u, rtol=1e-6, atol=1e-7):
-            raise AssertionError("kerr_cli --sharded differs")
+        if not (np.array_equal(img_s, img_e) and np.array_equal(img_s,
+                                                                img_u)):
+            raise AssertionError("kerr_cli --sharded differs from the "
+                                 "sharded march step by step or the "
+                                 "unsharded CLI")
         out["kerr_sharded_s"] = ks_wall
+        out["kerr_sharded_step_by_step_s"] = ke_wall
         print(f"[smoke] kerr_cli --sharded {kerr_size}x{kerr_size} "
-              f"{kerr_steps} steps: equal to the unsharded image within "
-              f"rtol 1e-6 (max abs diff {np.abs(img_s - img_u).max():.3g}), "
-              f"{ks_wall:.2f} s ({card})")
+              f"{kerr_steps} steps in captured blocks (capture included): "
+              f"{ks_wall:.2f} s, equal bit for bit to the sharded march "
+              f"step by step ({ke_wall:.2f} s) and to the unsharded CLI "
+              f"({card})")
     finally:
         pdist.shutdown()
     return out
@@ -1274,42 +1410,70 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
 
 def two_process_phase(dev, card, tmp, size="255x255"):
     """4k: two ranks of `rrt_tpu_torch.parallel.worker` on the one card
-    over gloo (NCCL refuses two ranks on one card), on a ragged frame: both
+    over gloo (NCCL refuses two ranks on one card), on a ragged frame,
+    with CUDA graphs around the collectives (the default on a card): both
     exit 0, their forward blocks tile the frame and equal this process's
     whole-frame forward rows (checked in each rank), and their sharded
     render's accumulators equal this process's single-process render bit
-    for bit, with launches equal to trace calls in each rank."""
+    for bit, with the kernel's runs equal to the trace calls in each rank;
+    the `step` check's `LossAndGrad(mesh=)` (eager, captured and
+    replayed, replayed) equals each rank's `loss_and_grad(mesh=)` at every
+    call and, at its last, the two ranks' shares summed in this process,
+    bit for bit."""
     from rrt_tpu_torch.parallel import worker
     from rrt_tpu_torch.tools.scaling_bench import spawn_workers
     w, h = worker.frame_size(size)
+    checks = ["render", "step"]
     t0 = time.perf_counter()
     res, logs = spawn_workers(2, size, tmp, device="cuda", backend="gloo",
-                              checks="render", timeout=600)
+                              checks=",".join(checks), timeout=600)
     wall = time.perf_counter() - t0
-    ref = worker.reference(["render"], w, h, dev, os.path.join(tmp, "r.png"))
+    ref = worker.reference(checks, w, h, dev, os.path.join(tmp, "r.png"))
     bounds = [(int(r["lo"]), int(r["hi"])) for r in res]
     if bounds[0][0] != 0 or bounds[0][1] != bounds[1][0] \
             or bounds[1][1] != w * h:
         raise AssertionError(f"blocks {bounds} do not tile {w * h} lanes")
+    leaves = ["loss"] + list(worker._LEAVES)
     for rank, r in enumerate(res):
         for key in ("rad_sum", "s1", "s2", "count", "done"):
             if not np.array_equal(r[f"render_{key}"], ref[f"render_{key}"]):
                 raise AssertionError(f"rank {rank}: render {key} differs")
-        if int(r["render_launches"]) != int(r["render_calls"]) \
-                or int(r["render_launches"]) == 0:
-            raise AssertionError(f"rank {rank}: {r['render_launches']} "
-                                 f"launches for {r['render_calls']} calls")
+        if not bool(r["render_graphs"]) or int(r["render_kernel_runs"]) \
+                != int(r["render_calls"]) or int(r["render_calls"]) == 0:
+            raise AssertionError(f"rank {rank}: graphs "
+                                 f"{bool(r['render_graphs'])}, "
+                                 f"{r['render_kernel_runs']} kernel runs for "
+                                 f"{r['render_calls']} calls")
+        if not (bool(r["step_graphs"]) and all(r["step_equal"])
+                and int(r["step_replays"]) == worker.STEP_CALLS - 1
+                and list(r["step_kernel_runs"]) == list(r["step_calls"])):
+            raise AssertionError(f"rank {rank}: step equal "
+                                 f"{list(r['step_equal'])}, replays "
+                                 f"{r['step_replays']}, kernel runs "
+                                 f"{list(r['step_kernel_runs'])} for calls "
+                                 f"{list(r['step_calls'])}")
+        for key in leaves:
+            if not np.array_equal(r[f"step_{key}"], ref[f"step_{key}"]):
+                raise AssertionError(f"rank {rank}: step {key} differs from "
+                                     f"the two shares summed")
     for log in logs:
         print(f"[smoke] rank: {log.strip().splitlines()[-1]}")
     out = dict(wall=wall, blocks=bounds,
                dt=[float(r["dt"]) for r in res],
                render_dt=[float(r["render_dt"]) for r in res],
-               launches=[int(r["render_launches"]) for r in res],
+               launches=[int(r["render_kernel_runs"]) for r in res],
+               python_launches=[int(r["render_launches"]) for r in res],
+               step_kernel_runs=[[int(c) for c in r["step_kernel_runs"]]
+                                 for r in res],
                max_err=[float(r["max_err"]) for r in res])
-    print(f"[smoke] two ranks on one card over gloo, {w}x{h} ({w * h} "
-          f"lanes): blocks {bounds}, forward dt {out['dt']} s, sharded "
-          f"render {out['render_dt']} s ({out['launches']} launches = trace "
-          f"calls), accumulators equal to the single-process render; "
+    print(f"[smoke] two ranks on one card over gloo with graphs, {w}x{h} "
+          f"({w * h} lanes): blocks {bounds}, forward dt {out['dt']} s, "
+          f"sharded render {out['render_dt']} s (kernel runs "
+          f"{out['launches']} = trace calls, {out['python_launches']} of "
+          f"them eager), accumulators equal to the single-process render; "
+          f"the compiled sharded step equal to the eager one at each of "
+          f"{worker.STEP_CALLS} calls (kernel runs {out['step_kernel_runs']} "
+          f"= trace calls) and to the two shares summed here, bit for bit; "
           f"{wall:.1f} s with the processes' start ({card})")
     return out
 

@@ -14,12 +14,21 @@ results together:
   global_mesh()          — the LaneMesh of the whole world
   make_global_batch(...) — this rank's lanes and their global window
   all_gather_lanes(...)  — the ranks' blocks put together in rank order
+                           (pack_lanes → gather_packed → unpack_lanes)
   all_reduce_sum/_max    — counters, gradients, agreed stop flags
+                           (pack_flat / unpack_flat around one flat buffer)
   all_processes_done()   — barrier (around checkpoint and image writes)
 
 Every collective goes through `_collective`, which counts its calls and
 the bytes this rank hands it in `COLLECTIVES`. The transport follows the
 backend: NCCL takes device tensors, gloo host copies.
+
+A compiled sharded program (a pass, a gradient step) is two CUDA graphs
+around its one collective: the first graph writes the collective's input
+into a static buffer (the pass its block of radiance, the step its loss
+and gradients packed flat), the collective runs eagerly between the
+replays, and the second graph reads its static output. So every backend
+serves them, gloo's host copies included.
 """
 from __future__ import annotations
 
@@ -143,42 +152,82 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8).reshape(t.shape[0], w * t.element_size())
 
 
+def pack_lanes(tensors, mesh: LaneMesh, n: int) -> torch.Tensor:
+    """The first piece of `all_gather_lanes`: this rank's block of every
+    tensor packed as bytes, (b, bytes of a lane) uint8 with b =
+    `shard_bounds`' block size, the lanes past the block zero. Makes no
+    collective, so a captured graph may run it."""
+    b = pad_to_multiple(n, mesh.world) // mesh.world
+    m = tensors[0].shape[0]
+    if m > b or any(t.shape[0] != m for t in tensors):
+        raise ValueError(f"blocks of {[t.shape[0] for t in tensors]} lanes: "
+                         f"a rank holds at most {b} of {n}, the same for "
+                         f"every tensor")
+    packed = torch.cat([_as_bytes(t) for t in tensors], dim=1)
+    if m < b:
+        packed = torch.cat([packed, packed.new_zeros(
+            (b - m, packed.shape[1]))])
+    return packed
+
+
+def gather_packed(packed: torch.Tensor, mesh: LaneMesh, n: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The collective of `all_gather_lanes` alone: every rank's block
+    `packed` (`shard_bounds`' block size of lanes, any dtype and trailing
+    shape) in rank order, cut to the first n lanes, written into `out`
+    when given. It runs eagerly, between the replays of the graphs that
+    write `packed` and read `out` (the sharded pass gathers its float
+    radiance so); without a process group it copies the block."""
+    if mesh.group is None:
+        whole = packed[:n]
+    else:
+        def gather(dist, x):
+            whole = x.new_empty((mesh.world * x.shape[0],) + x.shape[1:])
+            dist.all_gather(list(whole.chunk(mesh.world)), x,
+                            group=mesh.group)
+            return whole[:n]
+        whole = _collective(mesh, packed, gather)
+    if out is None:
+        return whole
+    out.copy_(whole)
+    return out
+
+
+def unpack_lanes(whole: torch.Tensor, like, n: int):
+    """The last piece of `all_gather_lanes`: the n lanes of each tensor
+    from the gathered bytes, `like` giving each tensor's dtype and
+    trailing shape (tensors of any lane count). Makes no collective, so a
+    captured graph may run it."""
+    out, c = [], 0
+    for t in like:
+        shape = (n,) + tuple(t.shape[1:])
+        w = 1 if t.dtype == torch.bool else t.element_size()
+        for s in shape[1:]:
+            w *= s
+        part = whole[:n, c:c + w].contiguous()
+        c += w
+        out.append(part.to(torch.bool).reshape(shape) if t.dtype
+                   == torch.bool else part.view(t.dtype).reshape(shape))
+    return out
+
+
 def all_gather_lanes(tensors, mesh: LaneMesh, n: int):
     """Put the ranks' blocks together: each rank holds the lanes
     [lo, min(hi, n)) of `shard_bounds(n, rank, world)` at the head of
     every tensor's leading axis; returns each tensor's n lanes in rank
     order. The tensors travel packed as bytes in one collective, so any
-    mix of dtypes comes back bit for bit. Takes a tensor or a sequence."""
+    mix of dtypes comes back bit for bit: `pack_lanes`, then
+    `gather_packed`, then `unpack_lanes`, pieces that a compiled program
+    may run on either side of its collective (the sharded pass gathers
+    its one float tensor with `gather_packed` alone). Takes a tensor or
+    a sequence."""
     single = isinstance(tensors, torch.Tensor)
     ts = [tensors] if single else list(tensors)
     if mesh.group is None:
         out = [t[:n] for t in ts]
         return out[0] if single else out
-    b = pad_to_multiple(n, mesh.world) // mesh.world
-    m = ts[0].shape[0]
-    if m > b or any(t.shape[0] != m for t in ts):
-        raise ValueError(f"blocks of {[t.shape[0] for t in ts]} lanes: a "
-                         f"rank holds at most {b} of {n}, the same for "
-                         f"every tensor")
-    cols = [_as_bytes(t) for t in ts]
-    packed = torch.cat(cols, dim=1)
-    if m < b:
-        packed = torch.cat([packed, packed.new_zeros(
-            (b - m, packed.shape[1]))])
-
-    def gather(dist, x):
-        parts = [torch.empty_like(x) for _ in range(mesh.world)]
-        dist.all_gather(parts, x, group=mesh.group)
-        return torch.cat(parts)[:n]
-    whole = _collective(mesh, packed, gather)
-    out, c = [], 0
-    for t, col in zip(ts, cols):
-        w = col.shape[1]
-        part = whole[:, c:c + w].contiguous()
-        c += w
-        shape = (n,) + tuple(t.shape[1:])
-        out.append(part.to(torch.bool).reshape(shape) if t.dtype
-                   == torch.bool else part.view(t.dtype).reshape(shape))
+    whole = gather_packed(pack_lanes(ts, mesh, n), mesh, n)
+    out = unpack_lanes(whole, ts, n)
     return out[0] if single else out
 
 
@@ -191,6 +240,19 @@ def _all_reduce(x: torch.Tensor, mesh: LaneMesh, op: str) -> torch.Tensor:
         dist.all_reduce(y, op=getattr(dist.ReduceOp, op), group=mesh.group)
         return y
     return _collective(mesh, x, reduce)
+
+
+def pack_flat(tensors) -> torch.Tensor:
+    """Float tensors as one flat buffer, in order: what one all-reduce of
+    several tensors (a loss and its gradients) reduces. Makes no
+    collective, so a captured graph may run it."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def unpack_flat(flat: torch.Tensor, like) -> list:
+    """`pack_flat` undone: the pieces of `flat` in the shapes of `like`."""
+    parts = flat.split([t.numel() for t in like])
+    return [p.reshape(t.shape) for p, t in zip(parts, like)]
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: LaneMesh) -> torch.Tensor:

@@ -16,12 +16,20 @@ with `local, lo, hi, dt, nproc, ndev` and the max error.
 `--checks` adds sharded runs whose results go into OUT.npz for the caller
 to hold against a single-process run (`reference`):
   render — a curved GI render (2 spp, one sample a pass, -l 1, -m 3)
-           with `Renderer(sharding=)`: its accumulators, trace calls and
-           the trace kernel's launches;
+           with `Renderer(sharding=)`: its accumulators, trace calls, the
+           trace kernel's Python launches and its own count of its runs;
   stop   — the same render with `stop_after=1` on the last rank only;
   grad   — `loss_and_grad(mesh=)` of that frame's camera rays;
+  step   — `LossAndGrad(mesh=)` of the same problem called three times
+           with moved params and a new seed each (on a card the first
+           call eager, the second captured and replayed, the third
+           replayed; on the CPU all eager): each call against
+           `loss_and_grad(mesh=)` bit for bit, its trace calls and the
+           kernel's runs, and the last call's loss and gradients;
   kerr   — a 32×32, 80-step Kerr image with `render_image(sharding=)`;
   cli    — `kerr_cli --sharded` at the same settings.
+The renders, the step and the Kerr march take the defaults: CUDA graphs
+on a card, around their collectives.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-CHECKS = ("render", "stop", "grad", "kerr", "cli")
+CHECKS = ("render", "stop", "grad", "step", "kerr", "cli")
 # the differentiable leaves, in `diff.SceneParams` order
 _LEAVES = ("reflectance", "transmittance", "emission", "eta", "k", "alpha",
            "ior", "light_radiance", "bh_position", "bh_radius",
@@ -93,6 +101,19 @@ def grad_setup(scene, cam, cfg, device):
     return bh, diff.params_from_scene(scene, bh), rays, target
 
 
+def step_params(params, i: int):
+    """The step check's params at call i: the radius and the reflectance
+    table moved."""
+    return params.replace(bh_radius=params.bh_radius + 0.004 * i,
+                          reflectance=params.reflectance * (1 - 0.05 * i))
+
+
+# the step check's calls; call i draws from a generator seeded with i
+STEP_CALLS = 3
+# the ranks whose step `reference` sums
+STEP_RANKS = 2
+
+
 def kerr_args(device, out_png: str):
     """The Kerr check's hole, disk, render_image keywords and the matching
     kerr_cli arguments (writing `out_png`)."""
@@ -108,7 +129,12 @@ def kerr_args(device, out_png: str):
 
 def reference(checks, w: int, h: int, device, tmp_png: str) -> dict:
     """The single-process results of `checks`, keyed as the worker writes
-    the sharded ones."""
+    the sharded ones, for a world of STEP_RANKS. The step's last call is
+    the two ranks' shares (`loss_and_grad` over a `LaneMesh` of each rank
+    without a group) added: the all-reduce's sum bit for bit, since a sum
+    of two floats does not depend on their order (a sum of three or more
+    would)."""
+    from rrt_tpu_torch.parallel.sharding import LaneMesh
     from rrt_tpu_torch.render import diff
     from rrt_tpu_torch.render import kerr_scene as K
     from rrt_tpu_torch.render.renderer import Renderer
@@ -127,6 +153,22 @@ def reference(checks, w: int, h: int, device, tmp_png: str) -> dict:
         out["grad_loss"] = loss.cpu().numpy()
         for f, v in zip(_LEAVES, g.leaves()):
             out[f"grad_{f}"] = v.cpu().numpy()
+    if "step" in checks:
+        bh, params, rays, target = grad_setup(scene, cam, cfg, device)
+        i = STEP_CALLS - 1
+        p, loss, grads = step_params(params, i), None, None
+        for rank in range(STEP_RANKS):
+            mesh = LaneMesh(None, rank, STEP_RANKS, torch.device(device),
+                            None)
+            l, g = diff.loss_and_grad(p, scene, bh, rays, target, cfg,
+                                      torch.Generator(device).manual_seed(i),
+                                      mesh=mesh)
+            loss = l if loss is None else loss + l
+            grads = g.leaves() if grads is None else [
+                a + b for a, b in zip(grads, g.leaves())]
+        out["step_loss"] = loss.cpu().numpy()
+        for f, v in zip(_LEAVES, grads):
+            out[f"step_{f}"] = v.cpu().numpy()
     if "kerr" in checks or "cli" in checks:
         bh, disk, kw, _ = kerr_args(device, tmp_png)
         out["kerr"] = K.render_image(bh=bh, disk=disk, **kw)
@@ -147,12 +189,14 @@ def run_checks(checks, w: int, h: int, mesh, out_png: str) -> dict:
     out = {}
     if "render" in checks:
         r = Renderer(scene, cam, cfg, dev, sharding=sharding)
-        tk.LAUNCHES = 0
+        tk.reset_counts()
         t0 = time.perf_counter()
         r.render()
         out["render_dt"] = time.perf_counter() - t0
         out["render_launches"] = tk.LAUNCHES
+        out["render_kernel_runs"] = tk.kernel_runs()
         out["render_calls"] = r.last_trace_calls
+        out["render_graphs"] = r.graphs
         for key, a in zip(("rad_sum", "s1", "s2", "count", "done"),
                           r.last_accumulators):
             out[f"render_{key}"] = a
@@ -169,6 +213,28 @@ def run_checks(checks, w: int, h: int, mesh, out_png: str) -> dict:
         out["grad_loss"] = loss.cpu().numpy()
         for f, v in zip(_LEAVES, g.leaves()):
             out[f"grad_{f}"] = v.cpu().numpy()
+    if "step" in checks:
+        bh, params, rays, target = grad_setup(scene, cam, cfg, dev)
+        step = diff.LossAndGrad(scene, bh, cfg, rays, target, mesh=mesh)
+        gen = lambda i: torch.Generator(dev).manual_seed(i)
+        equal, calls, runs = [], [], []
+        for i in range(STEP_CALLS):
+            p = step_params(params, i)
+            tk.reset_counts()
+            loss, g = step(p, gen(i))
+            calls.append(step.trace_calls)
+            runs.append(tk.kernel_runs())
+            want = diff.loss_and_grad(p, scene, bh, rays, target, cfg,
+                                      gen(i), mesh=mesh)
+            equal.append(torch.equal(loss, want[0]) and all(
+                torch.equal(a, b) for a, b in zip(g.leaves(),
+                                                  want[1].leaves())))
+        out.update(step_equal=equal, step_calls=calls, step_kernel_runs=runs,
+                   step_graphs=step.graphs,
+                   step_replays=step.call.replays if step.graphs else 0)
+        out["step_loss"] = loss.cpu().numpy()
+        for f, v in zip(_LEAVES, g.leaves()):
+            out[f"step_{f}"] = v.cpu().numpy()
     if "kerr" in checks or "cli" in checks:
         bh, disk, kw, cli = kerr_args(dev, out_png)
         if "kerr" in checks:

@@ -31,9 +31,12 @@ ray batch and target and renders its block of the lanes with the batch's
 draws windowed to them (`LaneWindow`); its share of the loss is
 Σ (img − target)² over its lanes / the batch's elements. Each rank takes
 the gradient of its share by itself, and the loss and every gradient
-leaf are then summed over the ranks: no collective inside autograd. This
-stands for the all-reduce that GSPMD inserts for the JAX package's
-sharded `jax.grad` (rrt_tpu/render/diff.py:109-124).
+leaf are then summed over the ranks by one all-reduce of one flat buffer:
+no collective inside autograd. This stands for the all-reduce that GSPMD
+inserts for the JAX package's sharded `jax.grad`
+(rrt_tpu/render/diff.py:109-124). `LossAndGrad(mesh=)` compiles it as
+two CUDA graphs around that all-reduce, the counterpart of the jitted
+sharded step of `__graft_entry__.dryrun_multichip`.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from rrt_tpu_torch.physics.schwarzschild import n_segments
 from rrt_tpu_torch.render.integrator import est_radiance
 from rrt_tpu_torch.types import BlackHoleParams, Rays, SceneData, _Tensors
 from rrt_tpu_torch.utils.config import RenderConfig
-from rrt_tpu_torch.utils.graphs import CapturedCall
+from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 
 
 @dataclasses.dataclass
@@ -173,26 +176,32 @@ def image_loss(params: SceneParams, scene: SceneData,
     return (loss, work) if with_work else loss
 
 
-def _value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
-                    tables):
+def _local_value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
+                          tables):
     """(loss, gradients, trace calls) of `image_loss` at `leaves`, tensors
-    that require grad; a leaf the loss does not reach gets a zero
-    gradient. With `mesh` the loss and the gradients are summed over the
-    ranks after each rank's own backward pass. The eager and the compiled
-    step both run this."""
+    that require grad, with `mesh` this rank's share of both (no
+    collective); a leaf the loss does not reach gets a zero gradient."""
     loss, work = image_loss(SceneParams.from_leaves(leaves), scene, bh,
                             rays, target, cfg, gen, mesh, tables, True)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    loss = loss.detach()
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
-    if mesh is not None:          # one all-reduce of the loss and leaves
-        flat = pdist.all_reduce_sum(torch.cat(
-            [loss.reshape(1)] + [g.reshape(-1) for g in grads]), mesh)
-        loss = flat[0]
-        parts = flat[1:].split([g.numel() for g in grads])
-        grads = [p.reshape(g.shape) for p, g in zip(parts, grads)]
-    return loss, grads, work.calls
+    return loss.detach(), grads, work.calls
+
+
+def _value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
+                    tables):
+    """(loss, gradients, trace calls) of `image_loss` at `leaves`. With
+    `mesh` the loss and the gradients are summed over the ranks after each
+    rank's own backward pass, by one all-reduce of one flat buffer
+    (`pack_flat`, `all_reduce_sum`, `unpack_flat`): the ops that
+    `LossAndGrad`'s two halves run on either side of it."""
+    loss, grads, calls = _local_value_and_grad(
+        leaves, scene, bh, rays, target, cfg, gen, mesh, tables)
+    if mesh is not None:
+        flat = pdist.all_reduce_sum(pdist.pack_flat([loss, *grads]), mesh)
+        loss, *grads = pdist.unpack_flat(flat, [loss, *grads])
+    return loss, grads, calls
 
 
 def _sgd(leaves, grads, lr):
@@ -255,25 +264,28 @@ class LossAndGrad:
     the step draws what the eager step draws from the same generator, and
     a fresh generator of one seed at every call evaluates one objective.
 
-    With `graphs` (the default on a card) the step is a `CapturedCall`:
-    the first call runs eagerly on a side stream, the second is captured
-    and replayed, later calls replay; its generator is registered with the
-    graph. Without graphs (the CPU, `graphs=False`, or `mesh=`) every call
-    runs the same step eagerly. With `mesh` the step runs eagerly only:
-    gloo's collectives cannot be captured, so asking for graphs with a mesh
-    raises, as `Renderer(sharding=..., graphs=True)` does."""
+    With `mesh` the step is split at its one all-reduce: half A
+    (`_half_a`: this rank's forward and backward, its loss share and
+    gradients packed into the static buffer `flat`), the seam (the
+    all-reduce of `flat` into the static buffer `summed`, eagerly) and
+    half B (`_half_b`: the unpack, the outputs and the update), the ops
+    `loss_and_grad(mesh=)` runs in the same order.
+
+    With `graphs` (the default on a card, with or without a mesh) the
+    step, or each half, is a `CapturedCall`: the first call runs eagerly
+    on a side stream, the second is captured and replayed, later calls
+    replay, the seam running between the halves; the generator is
+    registered with the graph that draws (the step's, or half A's).
+    Without graphs (the CPU, or `graphs=False`) every call runs the same
+    step eagerly."""
 
     def __init__(self, scene: SceneData, bh: Optional[BlackHoleParams],
                  cfg: RenderConfig, rays: Rays, target: torch.Tensor,
                  graphs: Optional[bool] = None, mesh=None):
         dev = scene.device
-        if graphs and mesh is not None:
-            raise ValueError("a step with mesh= runs eagerly: its "
-                             "collectives cannot be captured in a CUDA graph")
         if graphs and dev.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
-        can = dev.type == "cuda" and mesh is None
-        self.graphs = can if graphs is None else bool(graphs)
+        self.graphs = dev.type == "cuda" if graphs is None else bool(graphs)
         self.scene, self.bh, self.cfg, self.mesh = scene, bh, cfg, mesh
         self.tables = build_tables(scene, None)
         self.leaves = [x.detach().clone().requires_grad_(True)
@@ -285,19 +297,69 @@ class LossAndGrad:
         # the outputs: loss, gradients, updated leaves
         self.out = [torch.zeros((), dtype=torch.float32, device=dev)] + [
             torch.zeros_like(x) for x in self.leaves * 2]
+        if mesh is not None:
+            # the loss share and the gradients, before and after the
+            # all-reduce
+            size = 1 + sum(x.numel() for x in self.leaves)
+            self.flat = torch.zeros(size, dtype=torch.float32, device=dev)
+            self.summed = torch.zeros_like(self.flat)
         self.gen = torch.Generator(device=dev)
-        self.call = None          # the CapturedCall, made at the first call
+        # the CapturedCalls, made at the first call: the step (or half A)
+        # and, with a mesh, half B
+        self.call = self.update = None
         self.trace_calls = 0      # trace calls of one evaluation
 
-    def _run(self, out) -> int:
-        """One step on the static buffers, its results written into `out`;
-        returns its trace calls."""
-        loss, grads, calls = _value_and_grad(
-            self.leaves, self.scene, self.bh, self.rays, self.target,
-            self.cfg, self.gen, self.mesh, self.tables)
+    def _write(self, out, loss, grads):
+        """The loss, the gradients and the SGD update into `out`."""
         for buf, v in zip(out, [loss, *grads,
                                 *_sgd(self.leaves, grads, self.lr)]):
             buf.copy_(v)
+
+    def _run(self, out) -> int:
+        """One unsharded step on the static buffers, its results written
+        into `out`; returns its trace calls."""
+        loss, grads, calls = _value_and_grad(
+            self.leaves, self.scene, self.bh, self.rays, self.target,
+            self.cfg, self.gen, None, self.tables)
+        self._write(out, loss, grads)
+        return calls
+
+    def _half_a(self, flat) -> int:
+        """The sharded step up to its all-reduce: this rank's loss share
+        and gradients packed into `flat`; returns its trace calls."""
+        loss, grads, calls = _local_value_and_grad(
+            self.leaves, self.scene, self.bh, self.rays, self.target,
+            self.cfg, self.gen, self.mesh, self.tables)
+        flat.copy_(pdist.pack_flat([loss, *grads]))
+        return calls
+
+    def _half_b(self, summed, out):
+        """The sharded step after its all-reduce: the summed loss and
+        gradients unpacked from `summed`, written into `out` with the
+        update."""
+        loss, *grads = pdist.unpack_flat(summed, [out[0], *self.leaves])
+        self._write(out, loss, grads)
+
+    def _evaluate(self) -> int:
+        """One evaluation on the static buffers into `out`, eager or
+        through the graphs; returns its trace calls."""
+        if self.graphs and self.call is None:
+            dev, sharded = self.scene.device, self.mesh is not None
+            self.call = CapturedCall(
+                LossAndGrad._half_a if sharded else LossAndGrad._run, dev,
+                generators=(self.gen,),
+                name=("half A of the sharded gradient step" if sharded
+                      else "the gradient step"))
+            if sharded:
+                self.update = CapturedCall(
+                    LossAndGrad._half_b, dev,
+                    name="half B of the sharded gradient step")
+        if self.mesh is None:
+            return run_call(self.call, LossAndGrad._run, self, self.out)
+        calls = run_call(self.call, LossAndGrad._half_a, self, self.flat)
+        self.summed.copy_(pdist.all_reduce_sum(self.flat, self.mesh))
+        run_call(self.update, LossAndGrad._half_b, self, self.summed,
+                 self.out)
         return calls
 
     def _step(self, params: SceneParams, gen: torch.Generator, lr,
@@ -317,14 +379,7 @@ class LossAndGrad:
                 self.target.copy_(target)
             self.lr.fill_(lr)
         self.gen.set_state(gen.get_state())
-        if not self.graphs:
-            self.trace_calls = self._run(self.out)
-        else:
-            if self.call is None:
-                self.call = CapturedCall(
-                    LossAndGrad._run, self.scene.device,
-                    generators=(self.gen,), name="the gradient step")
-            self.trace_calls = self.call(self, self.out)
+        self.trace_calls = self._evaluate()
         gen.set_state(self.gen.get_state())
         n = len(self.leaves)
         out = [b.clone() for b in self.out]

@@ -16,11 +16,13 @@ shaded against a thin, opaque, Keplerian disk in the equatorial plane:
 The JAX package runs this as one `lax.scan` over RK4 steps, jitted per
 batch (rrt_tpu/render/kerr_scene.py:186); here it is a Python loop of
 PyTorch ops over the steps, with a per-lane adaptive step. On a card
-(`render_image` unsharded, unless `graphs=False`) the loop runs through a
-`DiskMarch`: blocks of `MARCH_BLOCK` steps, each captured once per batch
-shape as a CUDA graph (autograd's `_rhs` included) and replayed, plus a
-block of the remaining steps; the march state is the graphs' static
-buffers. The march equals the step-by-step loop bit for bit.
+(`render_image`, sharded or not, unless `graphs=False`) the loop runs
+through a `DiskMarch`: blocks of `MARCH_BLOCK` steps, each captured once
+per batch shape as a CUDA graph (autograd's `_rhs` included) and
+replayed, plus a block of the remaining steps; the march state is the
+graphs' static buffers. The march equals the step-by-step loop bit for
+bit. A sharded batch marches this rank's block so, and its one
+collective, the gather of the blocks, runs eagerly after the march.
 """
 from __future__ import annotations
 
@@ -256,14 +258,14 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
     multiple of the world (o with 0, d with 1.0), each rank marches its
     block, and the blocks are gathered; every rank returns the image.
 
-    `graphs`: march in captured blocks (`DiskMarch`); the default on a
-    card without `sharding`. The sharded march stays eager, as the
-    renderer's sharded passes do."""
+    `graphs`: march in captured blocks (`DiskMarch`), sharded or not; the
+    default on a card. A sharded batch's gather runs eagerly after its
+    block's march."""
     mesh = sharding.mesh if sharding is not None else None
     device = torch.device(device)
-    can = device.type == "cuda" and mesh is None
+    can = device.type == "cuda"
     if graphs and not can:
-        raise ValueError("CUDA graphs need a CUDA device and no sharding")
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
     bh, disk = bh.to(device), disk.to(device)
     march = DiskMarch(bh, disk) if (can if graphs is None else graphs) \
         else None
@@ -288,6 +290,6 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
             ob = torch.cat([ob, ob.new_zeros((pad, 3))])
             db = torch.cat([db, db.new_ones((pad, 3))])
             part = render_rays(shard_batch(ob, mesh), shard_batch(db, mesh),
-                               bh, disk, env, n_steps)
+                               bh, disk, env, n_steps, march=march)
             acc[i:i + batch] += all_gather_lanes(part, mesh, m)
     return (acc / spp).reshape(height, width, 3).cpu().numpy()

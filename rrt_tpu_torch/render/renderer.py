@@ -21,8 +21,8 @@ origin, the generator's seed) is written into device tensors and the
 runner's generator before the pass. On CUDA the shape's first pass runs
 eagerly, its second is captured once as a CUDA graph and replayed, and
 every later pass of the shape replays it (`utils/graphs.CapturedCall`);
-`graphs=False` runs it eagerly, as the CPU and the sharded path always
-do.
+`graphs=False` runs it eagerly, as the CPU always does. A sharded pass is
+two graphs around its one collective (`PassRunner`).
 
 The render lifecycle (the reference's `stop()`/`continueRaytracing`,
 pathtracer.cpp:180-202):
@@ -44,8 +44,9 @@ makes the camera rays of its block (`shard_bounds`), estimates them with
 the pass's draws windowed to its lanes (`LaneWindow`), and the blocks'
 radiance is gathered, so that every rank accumulates the same radiance
 as a single-process render, bit for bit. Decisions that end the pass loop
-are agreed by one all-reduce at each pass boundary; rank 0 alone writes
-checkpoints, previews and the image.
+are agreed by one all-reduce at each pass boundary, between passes and
+outside any graph; rank 0 alone writes checkpoints, previews and the
+image.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ from rrt_tpu_torch.render.lights import is_delta_light
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import BlackHoleParams, SceneData
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
-from rrt_tpu_torch.utils.graphs import CapturedCall
+from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 from rrt_tpu_torch.utils.stats import PhaseTimer, RenderStats
 
 
@@ -110,15 +111,26 @@ class PassRunner:
     one size and the adaptive batch boundaries all share one pass. The
     pass draws from `gen`, re-seeded with `pass_seed` before every pass.
 
-    With `graphs` the pass is a `CapturedCall` sharing the renderer's
-    graph pool: the first pass of the shape runs eagerly, the second is
-    captured and replayed, and every later pass replays the graph; a shape
-    that runs one pass is never captured."""
+    With a `mesh` the pass is split at its one collective, the gather of
+    the ranks' radiance (`parallel.distributed`): the rank half
+    (`Renderer._rank_half`: the windowed draws, camera rays and
+    `est_radiance` of this rank's block, its radiance written into the
+    static buffer `sent`, and the trace counters), the seam
+    (`gather_packed` from `sent` into the static buffer `whole`, eagerly)
+    and the accumulate half (`Renderer._accumulate_half`: the
+    accumulation of `whole`). Without one the pass is one function
+    (`Renderer._sample_pass`).
+
+    With `graphs` the pass, or each half, is a `CapturedCall` sharing the
+    renderer's graph pool (the rank half holds the generator): the first
+    pass of the shape runs eagerly, the second is captured and replayed,
+    and every later pass replays the graphs, the seam running between
+    them; a shape that runs one pass is never captured."""
 
     def __init__(self, device, k: int, rw: int, rh: int, graphs: bool,
-                 pool=None):
+                 pool=None, mesh=None):
         n = rw * rh
-        self.k, self.rw, self.rh = k, rw, rh
+        self.k, self.rw, self.rh, self.mesh = k, rw, rh, mesh
         z = lambda dtype=torch.float32, shape=(n,): torch.zeros(
             shape, dtype=dtype, device=device)
         self.acc = (z(shape=(n, 3)), z(), z(), z(torch.int32),
@@ -129,9 +141,24 @@ class PassRunner:
         self.x0, self.y0 = z(torch.int64, ()), z(torch.int64, ())
         self.gen = torch.Generator(device=device)
         self.passes = 0
-        self.call = (CapturedCall(Renderer._sample_pass, device, pool,
-                                  (self.gen,), name=f"the pass (k, rw, rh) "
-                                  f"= {(k, rw, rh)}") if graphs else None)
+        name = f"(k, rw, rh) = {(k, rw, rh)}"
+        capture = lambda fn, what, gens=(): CapturedCall(
+            fn, device, pool, gens, name=f"{what} {name}") if graphs \
+            else None
+        self.accumulate = None
+        if mesh is None:
+            self.call = capture(Renderer._sample_pass, "the pass",
+                                (self.gen,))
+            return
+        # this rank's block of the radiance, zero past its live lanes, and
+        # every rank's radiance gathered
+        lo, hi = shard_bounds(k * n, mesh.rank, mesh.world)
+        self.sent = z(shape=(hi - lo, 3))
+        self.whole = z(shape=(k * n, 3))
+        self.call = capture(Renderer._rank_half, "the rank half of the pass",
+                            (self.gen,))
+        self.accumulate = capture(Renderer._accumulate_half,
+                                  "the accumulate half of the pass")
 
     @property
     def warm(self) -> bool:
@@ -150,16 +177,21 @@ class PassRunner:
     def run(self, renderer, seed: int, s: int, ks: int, x0: int, y0: int
             ) -> int:
         """One pass from sample s with ks live samples at origin (x0, y0);
-        returns its trace calls."""
+        returns its trace calls (this rank's, when sharded)."""
         self.sample_idx.fill_(s)
         self.n_valid.fill_(ks)
         self.x0.fill_(x0)
         self.y0.fill_(y0)
         self.gen.manual_seed(pass_seed(seed, s, 0))
         self.passes += 1
-        if self.call is None:
-            return renderer._sample_pass(self)
-        return self.call(renderer, self)
+        if self.mesh is None:
+            return run_call(self.call, Renderer._sample_pass, renderer,
+                            self)
+        calls = run_call(self.call, Renderer._rank_half, renderer, self)
+        pdist.gather_packed(self.sent, self.mesh, self.k * self.rw * self.rh,
+                            out=self.whole)
+        run_call(self.accumulate, Renderer._accumulate_half, renderer, self)
+        return calls
 
 
 class Renderer:
@@ -184,13 +216,14 @@ class Renderer:
         self.bh = make_black_hole(cfg, self.device)
         # the traversal's tables, built once for every trace of the render
         self.tables = build_tables(scene, self.bh)
-        # passes are captured as CUDA graphs on a card, unless the caller
-        # asks for eager passes; the sharded path's collectives (gloo, and
-        # the host sync of its per-pass MAX all-reduce) cannot be captured
-        can = self.device.type == "cuda" and self.mesh is None
+        # passes are captured as CUDA graphs on a card, sharded or not,
+        # unless the caller asks for eager passes: a sharded pass's gather
+        # runs eagerly between its two graphs, and the pass loop's stop
+        # agreement between passes
+        can = self.device.type == "cuda"
         if graphs and not can:
-            raise ValueError("CUDA graphs need a CUDA device and an "
-                             "unsharded renderer")
+            raise ValueError(f"CUDA graphs need a CUDA device, not "
+                             f"{self.device}")
         self.graphs = can if graphs is None else bool(graphs)
         self._pool = None
         self._pass_fns = {}   # (k, rw, rh) -> PassRunner
@@ -237,7 +270,7 @@ class Renderer:
             if self.graphs and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             runner = PassRunner(self.device, k, rw, rh, self.graphs,
-                                self._pool)
+                                self._pool, self.mesh)
             self._pass_fns[(k, rw, rh)] = runner
         return runner
 
@@ -264,14 +297,16 @@ class Renderer:
             return self.camera.generate_rays_thin_lens(xy, rnd_r, rnd_th)
         return self.camera.generate_rays(xy)
 
-    def _sample_pass(self, p: PassRunner) -> int:
-        """Trace p.k samples of every pixel of p's window in one batch of
-        k·n lanes (n = rw·rh) and add the first p.n_valid of them into p's
-        accumulators, in place. Reads only p's tensors and generator, so
-        that one capture serves every pass of the shape. Returns the
-        number of trace calls."""
+    def _masks(self, p: PassRunner):
+        """The pass's live pixels (not frozen) and live samples (the
+        first p.n_valid of k)."""
+        return ~p.acc[4], torch.arange(p.k, device=self.device) < p.n_valid
+
+    def _radiance(self, p: PassRunner, masks):
+        """The radiance of the pass's lanes [lo, hi) (this rank's block,
+        all k·n lanes unsharded) and the integrator's `TraceWork`."""
         cfg, dev, k = self.cfg, self.device, p.k
-        rad_sum, s1, s2, count, done = p.acc
+        active, valid_k = masks
         n = p.rw * p.rh
         gen = p.gen
         lo, hi = 0, k * n
@@ -285,14 +320,19 @@ class Renderer:
             jitter = lane_rand(gen, (hi - lo, 2), dev)
         rays = self.camera_rays(jitter, gen, k, (p.x0, p.y0, p.rw, p.rh),
                                 (lo, hi))
-        active = ~done
-        valid_k = torch.arange(k, device=dev) < p.n_valid
         lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
         rays = _mask_rays(rays, lane_live[lo:hi], self.bh)
-        L, work = est_radiance(self.scene, self.bh, rays, cfg, gen,
-                               self.tables)
-        if self.mesh is not None:
-            L = pdist.all_gather_lanes(L, self.mesh, k * n)
+        return est_radiance(self.scene, self.bh, rays, self.cfg, gen,
+                            self.tables)
+
+    def _accumulate(self, p: PassRunner, L: torch.Tensor, masks):
+        """Add the first p.n_valid samples of the pass's radiance L (k·n, 3)
+        into p's accumulators, in place, and freeze converged pixels at a
+        batch boundary."""
+        cfg, k = self.cfg, p.k
+        rad_sum, s1, s2, count, done = p.acc
+        n = p.rw * p.rh
+        active, valid_k = masks
         L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         L = torch.where(valid_k[:, None, None], L.reshape(k, n, 3), 0.0)
 
@@ -312,8 +352,32 @@ class Renderer:
             conv = (1.96 * sd / torch.sqrt(torch.clamp(i1, min=1.0))
                     <= cfg.max_tolerance * avg)
             done |= boundary & active & conv
+
+    def _sample_pass(self, p: PassRunner) -> int:
+        """Trace p.k samples of every pixel of p's window in one batch of
+        k·n lanes (n = rw·rh) and add the first p.n_valid of them into p's
+        accumulators, in place: the unsharded pass. Reads only p's tensors
+        and generator, so that one capture serves every pass of the shape.
+        Returns the number of trace calls."""
+        masks = self._masks(p)
+        L, work = self._radiance(p, masks)
+        self._accumulate(p, L, masks)
         p.tests += work.tests
         return work.calls
+
+    def _rank_half(self, p: PassRunner) -> int:
+        """The sharded pass up to its gather: this rank's block of the k·n
+        lanes estimated, its radiance written into p.sent, its trace
+        counters added into p.tests. Returns this rank's trace calls."""
+        L, work = self._radiance(p, self._masks(p))
+        p.sent[:L.shape[0]].copy_(L)
+        p.tests += work.tests
+        return work.calls
+
+    def _accumulate_half(self, p: PassRunner):
+        """The sharded pass after its gather: every rank's radiance, in
+        p.whole, accumulated as `_sample_pass` does."""
+        self._accumulate(p, p.whole, self._masks(p))
 
     # ------------------------------------------------------------ checkpoints
 

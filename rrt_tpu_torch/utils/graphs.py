@@ -1,7 +1,31 @@
 """Compiled calls: a function of static tensors captured once as a CUDA
-graph and replayed (the port's counterpart of `jax.jit` for a pass or a
-block of march steps; see `render/renderer.Renderer._pass_fn` and
+graph and replayed (the port's counterpart of `jax.jit` for a pass, a
+gradient step or a block of march steps; see
+`render/renderer.Renderer._pass_fn`, `render/diff.LossAndGrad` and
 `render/kerr_scene.DiskMarch`).
+
+A sharded program is two calls around its one collective, which runs
+eagerly between their replays on the static buffers they share: the
+renderer's sharded pass (`PassRunner`: the rank half, the gather, the
+accumulate half), the sharded gradient step (`LossAndGrad(mesh=)`: half
+A, the all-reduce, half B) and the sharded Kerr batch (its block's march
+in `DiskMarch` blocks, then the gather). No collective is captured, so
+any backend serves them, gloo's host copies included.
+
+While a process group is alive a capture runs in
+`capture_error_mode="thread_local"` (`capture_mode`), else in the
+default `"global"`. NCCL's watchdog thread queries the events of the
+group's collectives on its own clock, and the halves of a sharded
+program are captured right after their collective (the accumulate half
+of a pass at its second pass, half B of a step at its second call).
+Under `"global"` CUDA forbids such a query from any thread while the
+main thread captures, and the forbidden call breaks the capture;
+`"thread_local"` forbids it in the capturing thread only, which is all a
+capture here needs. Synchronising the collective's stream first would
+not do: the watchdog may query an event that has already completed at
+any time. The kernels a capture records, autograd's included, are the
+same in either mode (tests/test_torch_kernel_cuda.py,
+`test_capture_right_after_collectives_over_nccl`).
 
 `CapturedCall(fn, device)` holds a function that reads and writes only
 tensors made before its first call (its static buffers, updated in place:
@@ -14,8 +38,8 @@ call replays. So a call made once costs no capture. Values that change
 from call to call must be device tensors that `fn` reads; host→device
 copies and host reads inside `fn` break the capture. A capture that fails
 raises, naming the innermost line of this package it was in; nothing
-falls back to eager. Autograd inside `fn` (Kerr's `_rhs`) is captured in
-the default capture mode.
+falls back to eager. Autograd inside `fn` (Kerr's `_rhs`, the gradient
+step's backward) is captured in either mode.
 
 Generators that `fn` draws from are registered with the graph
 (`register_generator_state`); re-seeding one with `manual_seed` before a
@@ -39,6 +63,15 @@ from typing import Callable, Sequence
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def capture_mode() -> str:
+    """The `capture_error_mode` of a capture made now: `"thread_local"`
+    while a `torch.distributed` process group is alive (its watchdog
+    thread queries events during our captures), else `"global"`."""
+    dist = torch.distributed
+    return "thread_local" if dist.is_available() and dist.is_initialized() \
+        else "global"
 
 
 def _where(exc: BaseException) -> str:
@@ -87,7 +120,8 @@ class CapturedCall:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode=capture_mode()):
             self.result = self.fn(*args)
         return graph
 
@@ -107,3 +141,9 @@ class CapturedCall:
         self.graph.replay()
         self.replays += 1
         return self.result
+
+
+def run_call(call, fn: Callable, *args):
+    """`call(*args)` through a `CapturedCall`, or `fn(*args)` eagerly when
+    there is none (`call` is None: no graphs)."""
+    return fn(*args) if call is None else call(*args)

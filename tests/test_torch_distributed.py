@@ -12,6 +12,10 @@ single-process runs of the same work (`worker.reference`):
   * `loss_and_grad(mesh=)`: rtol 1e-4 on the material leaves, 5e-3 on the
     hole's (test_sharding.py's test_sharded_grads_allreduce,
     test_torch_diff.py);
+  * `LossAndGrad(mesh=)` over three calls (all eager on the CPU, its two
+    halves around the all-reduce): every call equal to the rank's
+    `loss_and_grad(mesh=)` bit for bit, and the last call equal bit for
+    bit to the two ranks' shares computed and summed in this process;
   * a 32×32, 80-step Kerr `render_image(sharding=)` and `kerr_cli
     --sharded` equal the single-process image (rtol 1e-6, atol 1e-7, as
     tests/test_kerr.py holds it);
@@ -98,6 +102,20 @@ def test_sharded_grads_match_single_process(runs, rank):
                                    rtol=5e-3, atol=1e-7, err_msg=leaf)
     assert np.abs(r["grad_bh_radius"]).max() > 0
     assert np.abs(r["grad_reflectance"]).max() > 0
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_sharded_step_equals_eager_and_single_process(runs, rank):
+    res, _, ref = runs
+    r = res[rank]
+    assert r["step_equal"].tolist() == [True] * worker.STEP_CALLS
+    assert not bool(r["step_graphs"])        # the CPU has no graphs
+    assert all(int(c) == int(r["step_calls"][0]) > 0 for c in r["step_calls"])
+    np.testing.assert_array_equal(r["step_loss"], ref["step_loss"])
+    for leaf in MATERIAL + HOLE:
+        np.testing.assert_array_equal(r[f"step_{leaf}"], ref[f"step_{leaf}"],
+                                      err_msg=leaf)
+    assert np.abs(r["step_bh_radius"]).max() > 0
 
 
 @pytest.mark.parametrize("key", ["kerr", "cli"])

@@ -27,6 +27,7 @@ from rrt_tpu.scene.build import load_scene as jax_load_scene
 from rrt_tpu_torch import bench
 from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
 from rrt_tpu_torch.ops import trace_kernel as tk
+from rrt_tpu_torch.parallel.sharding import batch_sharding, make_mesh
 from rrt_tpu_torch.render import kerr_scene as K
 from rrt_tpu_torch.render.renderer import (PassRunner, Renderer,
                                            pass_generator, pass_seed)
@@ -61,7 +62,7 @@ def _buffers(args):
         elif isinstance(a, (list, tuple)):
             out += _buffers(a)
         elif isinstance(a, PassRunner):
-            out += [*a.acc, a.tests]
+            out += [*a.acc, a.tests] + ([a.sent] if a.mesh else [])
     return out
 
 
@@ -298,16 +299,23 @@ def test_a_failed_capture_raises_where_it_broke(monkeypatch):
 
 def test_graphs_only_on_a_card():
     """Passes are captured only on CUDA: a CPU renderer runs eagerly, and
-    asking for graphs on the CPU (renderer or Kerr) raises."""
+    asking for graphs on the CPU (renderer or Kerr) raises for the device,
+    with a lane mesh (a world of 1 without a group) or without; the mesh
+    alone refuses nothing."""
     cfg = _cfg(1)
     scene, cam = load_scene(CBOX_SPHERES, "cpu", W, H, fov_mode="native")
-    assert not Renderer(scene, cam, cfg, "cpu").graphs
-    with pytest.raises(ValueError, match="CUDA graphs"):
-        Renderer(scene, cam, cfg, "cpu", graphs=True)
     bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, "cpu")
     disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, "cpu")
-    with pytest.raises(ValueError, match="CUDA graphs"):
-        K.render_image(4, 4, bh, disk, n_steps=2, device="cpu", graphs=True)
+    sharding = batch_sharding(make_mesh("cpu"))
+    for kw in (dict(), dict(sharding=sharding)):
+        assert not Renderer(scene, cam, cfg, "cpu", **kw).graphs
+        with pytest.raises(ValueError, match="CUDA graphs need a CUDA "
+                           "device, not cpu"):
+            Renderer(scene, cam, cfg, "cpu", graphs=True, **kw)
+        with pytest.raises(ValueError, match="CUDA graphs need a CUDA "
+                           "device, not cpu"):
+            K.render_image(4, 4, bh, disk, n_steps=2, device="cpu",
+                           graphs=True, **kw)
 
 
 def test_camera_frame_is_kept_and_refreshed_in_place():

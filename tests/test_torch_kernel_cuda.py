@@ -6,7 +6,8 @@ back to back, each in the default build and in the builds that fix its
 traversal lane by lane and cooperative), the differentiable trace on the
 kernel's primal against the CPU's, the toolchain probe and the eight cost
 micro-probes; the passes, Kerr's march blocks and the gradient step
-captured as CUDA graphs against their eager runs.
+captured as CUDA graphs against their eager runs, unsharded and sharded
+over an NCCL group of one rank (two graphs around each collective).
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -476,6 +477,177 @@ def test_compiled_gradient_step_equals_eager(device):
         assert torch.equal(ge.get_state(), gc.get_state())
     assert step.call.replays == 2
     assert want[1].bh_radius.abs() > 0
+
+
+@pytest.fixture
+def nccl1(device, tmp_path):
+    """An NCCL process group of one rank in this process (a file store in
+    the test's directory) and its lane mesh, destroyed after the test."""
+    import torch.distributed as dist
+    from rrt_tpu_torch.parallel import sharding as sh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = sh.make_mesh(device)
+        assert (mesh.world, mesh.backend) == (1, "nccl")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_capture_right_after_collectives_over_nccl(device, nccl1):
+    """Thirty captures, each made as the halves of a sharded program make
+    theirs: the call already warmed up, then an all-reduce, an all-gather
+    and the seam's gather into a static buffer issued on the NCCL group,
+    then at once the capturing call, while the group's watchdog still
+    polls the collectives' events. Each capture runs in "thread_local"
+    mode, succeeds, and its replay equals the eager call bit for bit. On
+    a world of one the collectives end quickly; the multi-rank case is
+    phase 4k of chip_smoke.py over gloo, which has no watchdog."""
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.utils.graphs import CapturedCall, capture_mode
+    assert capture_mode() == "thread_local"
+    x = torch.rand(4096, device=device)
+    y = torch.empty_like(x)
+    big = torch.rand(1 << 22, 3, device=device)      # 48 MiB a gather
+    whole = torch.empty_like(big)
+
+    def chain(x, y):          # a few hundred small kernels to capture
+        z = x
+        for _ in range(200):
+            z = torch.sin(z) * 0.5 + z
+        y.copy_(z)
+    want = torch.empty_like(x)
+    chain(x, want)
+    for _ in range(30):
+        call = CapturedCall(chain, device, name="a chain")
+        y.zero_()
+        call(x, y)                # eager
+        assert torch.equal(y, want)
+        pdist.all_reduce_sum(x, nccl1)
+        pdist.all_gather_lanes(x, nccl1, x.shape[0])
+        pdist.gather_packed(big, nccl1, big.shape[0], out=whole)
+        y.zero_()
+        call(x, y)                # captured right away, then replayed
+        assert torch.equal(y, want)
+        assert call.graph is not None and call.replays == 1
+    assert torch.equal(whole, big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_sharded_graph_passes_equal_eager(device, nccl1, case):
+    """Sharded passes over an NCCL group of one rank, each the rank half
+    and the accumulate half captured as CUDA graphs with the gather
+    between them, equal the eager sharded passes and the unsharded graph
+    passes bit for bit (accumulators, counters, trace calls) over three
+    renders; the kernel's own count of its runs equals the trace calls in
+    every render, and from the second render on the Python launcher
+    launches nothing. "cbox_dense" covers the multi-part traversal."""
+    from rrt_tpu_torch.parallel import sharding as sh
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.utils.config import BlackHoleConfig, RenderConfig
+    name, size, kw, how = GRAPH_CASES[case]
+    kw = dict(kw)
+    if kw.pop("flat", False):
+        kw["black_hole"] = BlackHoleConfig(enabled=False)
+    cfg = RenderConfig(width=size, height=size, **{
+        "ns_area_light": 4, "max_ray_depth": 5, **kw})
+    scene, cam = (build_scene(cbox_dense(), device, size, size)
+                  if name == "dense" else
+                  load_scene(CBOX_SPHERES, device, size, size))
+    sharding = sh.batch_sharding(nccl1)
+
+    def run(r):
+        out, calls = [], 0
+        for region in ([(0, 0, 24, 16), (30, 40, 24, 16)] if how == "cells"
+                       else [None]):
+            r.render(region=region)
+            out += [*r.last_accumulators, r.last_trace_tests]
+            calls += r.last_trace_calls
+        return out, calls
+    want, want_calls = run(Renderer(scene, cam, cfg, device))
+    eager = Renderer(scene, cam, cfg, device, sharding=sharding,
+                     graphs=False)
+    graph = Renderer(scene, cam, cfg, device, sharding=sharding)
+    assert graph.graphs and not eager.graphs
+    got, calls = run(eager)
+    assert calls == want_calls
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    for i in range(3):
+        tk.reset_counts()
+        got, calls = run(graph)
+        assert tk.kernel_runs() == calls == want_calls > 0
+        assert tk.LAUNCHES == 0 or i == 0
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    runners = graph._pass_fns.values()
+    assert all(p.call.replays == p.accumulate.replays for p in runners)
+    assert sum(p.call.replays for p in runners) >= 2
+
+
+@pytest.mark.cuda
+def test_sharded_gradient_step_equals_eager(device, nccl1):
+    """`LossAndGrad(mesh=)` over an NCCL group of one rank, half A and
+    half B captured as CUDA graphs with the all-reduce between them, at
+    64×64 curved global illumination (-l 1, -m 2) over three calls with
+    moved params and a new seed each: the loss and all eleven gradients
+    equal the eager `loss_and_grad(mesh=)` bit for bit, the caller's
+    generator is left where the eager step leaves it, the kernel's runs
+    equal the trace calls and a replayed step launches nothing through
+    Python."""
+    from rrt_tpu_torch.render import diff
+    from rrt_tpu_torch.render.renderer import make_black_hole
+    from rrt_tpu_torch.tools.inverse import RADIUS_FRAME, pixel_rays
+    from rrt_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig(width=64, height=64, ns_aa=1, ns_area_light=1,
+                       max_ray_depth=2, seed=0)
+    scene, cam = load_scene(CBOX_SPHERES, device, 64, 64, fov_mode="native")
+    bh = make_black_hole(cfg, device)
+    rays = pixel_rays(cam, 64, 64, device, RADIUS_FRAME)
+    params = diff.params_from_scene(scene, bh)
+    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    target = torch.full_like(rays.o, 0.2)
+    step = diff.LossAndGrad(scene, bh, cfg, rays, target, mesh=nccl1)
+    assert step.graphs
+    for i in range(3):
+        p = params.replace(bh_radius=params.bh_radius + 0.004 * i,
+                           reflectance=params.reflectance * (1 - 0.05 * i))
+        ge, gc = gen(i), gen(i)
+        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, ge,
+                                  mesh=nccl1)
+        tk.reset_counts()
+        got = step(p, gc)
+        assert tk.kernel_runs() == step.trace_calls > 0
+        assert tk.LAUNCHES == (step.trace_calls if i == 0 else 0)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1].leaves(), want[1].leaves()):
+            assert torch.equal(a, b)
+        assert torch.equal(ge.get_state(), gc.get_state())
+    assert step.call.replays == step.update.replays == 2
+    assert want[1].bh_radius.abs() > 0
+
+
+@pytest.mark.cuda
+def test_sharded_kerr_blocks_equal_step_by_step(device, nccl1):
+    """`render_image(sharding=)` over an NCCL group of one rank, its
+    block's march in captured blocks (the default on a card) and the
+    gather after it, equals the step-by-step sharded image and the
+    unsharded image bit for bit, over two batches of one shape."""
+    from rrt_tpu_torch.convert import (disk_from_arrays,
+                                       kerr_params_from_arrays)
+    from rrt_tpu_torch.parallel import sharding as sh
+    from rrt_tpu_torch.render import kerr_scene as K
+    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, device)
+    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, device)
+    kw = dict(width=32, height=32, bh=bh, disk=disk, n_steps=130,
+              batch=512, device=device)
+    sharding = sh.batch_sharding(nccl1)
+    want = K.render_image(graphs=False, **kw)
+    np.testing.assert_array_equal(K.render_image(
+        sharding=sharding, graphs=False, **kw), want)
+    np.testing.assert_array_equal(K.render_image(sharding=sharding, **kw),
+                                  want)
 
 
 @pytest.mark.cuda
