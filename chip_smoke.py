@@ -127,6 +127,22 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    (`first_frame_phase(DIR, card)`, run alone from a script, times the
    CLI's main path from fresh processes of an earlier checkout and of
    this one in turns: the time to the first frame);
+4n. the lane-sharded user paths on several cards, one rank of
+   `rrt_tpu_torch.parallel.worker` a card in one NCCL group, with CUDA
+   graphs around every collective (`multicard_phase`), on 2 cards, then
+   3, up to all of them or 4: the primary render, a tail pass,
+   adaptive and a stop on the last rank alone, each equal bit for bit to
+   the one-card render made here on card 0 before the ranks start; the
+   sharded 256² step equal to eager at every call and within the
+   order-free bound of the ranks' shares summed here; Kerr config 5 equal
+   to the one-card frame; the per-trace `mesh=` forward equal to the
+   unsharded one; walls in turns with the one-card render, host
+   launches, collectives and bytes, busy share, capture seconds, the
+   NCCL transport (`NCCL_DEBUG=INFO`); then `scaling_bench --size 1024`
+   over 1, 2, ... ranks and its `--breakdown` under the largest group.
+   On one card it prints `[smoke] phase 4n: not run: 1 card, needs 2 or
+   more` and the smoke goes on. `--phase 4n` runs phases 1-2 and 4n
+   alone;
 5. the bench (`rrt_tpu_torch.bench`, in-process): probe, build, the
    primary and the BVH-scale cell (the median of 5 timed renders each);
    its JSON line is printed;
@@ -134,11 +150,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    timed at two iteration counts, beside its plain version;
 7. a JSON line of the kernels, then the ok line.
 
-Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 4j, 4k, 4l, 4m, 5, 6) is driven
+Each of the paths (4, 4b, 4c, 4e, 4f, 4h, 4j, 4k, 4l, 4m, 4n, 5, 6) is driven
 with the kernels' launch counts set to 0 just before it and read just
 after: every kernel of the path must have launched in it. A replayed CUDA
 graph runs the trace kernel without its Python wrapper, so on the paths
-that replay (4f, 4j, 4k, 4l, 4m, 5) the trace kernel's count is the one
+that replay (4f, 4j, 4k, 4l, 4m, 4n, 5) the trace kernel's count is the one
 the kernel keeps on the device (`trace_kernel.kernel_runs`: one for each
 run, launched or replayed), and it must equal the trace calls.
 
@@ -1516,6 +1532,250 @@ def tools_phase(dev, card):
     return dict(card_gap=gap, configs=configs, kbench=kb)
 
 
+def _nccl_transports(logs):
+    """The transports NCCL reported under NCCL_DEBUG=INFO in the ranks'
+    logs (`... via P2P/CUMEM`, `via SHM`, `NET/...`), and its version."""
+    import re
+    via, version = set(), set()
+    for log in logs:
+        for line in log.splitlines():
+            if "NCCL INFO" not in line:
+                continue
+            m = re.search(r" via (\S+)", line)
+            if m:
+                via.add(m.group(1))
+            m = re.search(r"NCCL version (\S+)", line)
+            if m:
+                version.add(m.group(1))
+    return sorted(via), sorted(version)
+
+
+def check_world(world, res, ref):
+    """Phase 4n's checks of one world's ranks (`res`, their npz dicts)
+    against the one-card reference (`worker.full_reference`): returns
+    (the world's row of numbers, the list of what failed)."""
+    from rrt_tpu_torch.parallel import worker
+    names = ("loss",) + worker._LEAVES
+    bad, worst = [], 0.0
+    for rank, r in enumerate(res):
+        if not bool(r["build_cached"]):
+            bad.append(f"rank {rank} built a kernel")
+        for case in worker.FULL_CASES:
+            same = all(np.array_equal(r[f"{case}_{k}"], ref[f"{case}_{k}"])
+                       for k in worker._ACC)
+            calls = list(r[f"{case}_calls"])
+            runs = list(r[f"{case}_kernel_runs"])
+            launches = list(r[f"{case}_launches"])
+            if not (same and bool(r[f"{case}_same"])):
+                bad.append(f"rank {rank}: {case} differs from the "
+                           f"one-card render")
+            if not bool(r[f"{case}_graphs"]):
+                bad.append(f"rank {rank}: {case} ran without graphs")
+            if runs != calls or min(calls) == 0 or any(launches[1:]):
+                bad.append(f"rank {rank}: {case} kernel runs {runs} for "
+                           f"calls {calls}, Python launches {launches}")
+            if int(r[f"{case}_samples"]) != int(ref[f"{case}_samples"]):
+                bad.append(f"rank {rank}: {case} ended at "
+                           f"{int(r[f'{case}_samples'])} samples")
+        if not bool(r["primary_unsharded_same"]):
+            bad.append(f"rank {rank}: its own card's unsharded render "
+                       f"differs")
+        step = [r[f"step_{k}"] for k in names]
+        if not (bool(r["step_graphs"]) and all(r["step_equal"])
+                and list(r["step_kernel_runs"]) == list(r["step_calls"])
+                and list(r["step_launches"][1:]) == [0, 0]):
+            bad.append(f"rank {rank}: step equal {list(r['step_equal'])}"
+                       f", kernel runs {list(r['step_kernel_runs'])} for "
+                       f"calls {list(r['step_calls'])}, launches "
+                       f"{list(r['step_launches'])}")
+        shares = ref[f"shares_{world}"]
+        off = {k: worker.off_bound(a, [s[i] for s in shares])
+               for i, (k, a) in enumerate(zip(names, step))}
+        worst = max(worst, *off.values())
+        if max(off.values()) > 1.0 or (world == 2 and max(off.values())):
+            bad.append(f"rank {rank}: step off its shares' sum "
+                       f"(in bounds) {off}")
+        for k, a, b in zip(names, step, ref["unsharded_step"]):
+            rtol = 5e-3 if k.startswith("bh_") else 1e-4
+            if not np.allclose(a, b, rtol=rtol, atol=1e-7):
+                bad.append(f"rank {rank}: step {k} off the unsharded "
+                           f"step")
+        if any(not np.array_equal(r[f"step_{k}"], res[0][f"step_{k}"])
+               for k in names):
+            bad.append(f"rank {rank}: step differs from rank 0's")
+        if not (np.array_equal(r["kerr"], ref["kerr"])
+                and bool(r["kerr_same"])):
+            bad.append(f"rank {rank}: Kerr differs from the one-card "
+                       f"frame")
+        if not (bool(r["mesh_trace_equal"])
+                and int(r["mesh_trace_launches"]) > 0):
+            bad.append(f"rank {rank}: est_radiance(mesh=) differs or "
+                       f"launched nothing")
+    med = lambda a: float(np.median(a))
+    row = dict(
+        build_cached=[bool(r["build_cached"]) for r in res],
+        primary_s=[med(r["primary_walls"]) for r in res],
+        primary_walls=[list(map(float, r["primary_walls"])) for r in res],
+        one_card_s=[med(r["primary_unsharded_walls"]) for r in res],
+        host_launches=[int(r["primary_host_launches"]) for r in res],
+        passes=int(res[0]["primary_passes"]),
+        collectives=int(res[0]["primary_collectives"]),
+        collective_bytes=int(res[0]["primary_collective_bytes"]),
+        busy=[float(r["primary_busy"]) for r in res],
+        device_ms=[float(r["primary_device_ms"]) for r in res],
+        nccl_ms=[float(r["primary_nccl_ms"]) for r in res],
+        busy_without_nccl=[
+            (float(r["primary_device_ms"]) - float(r["primary_nccl_ms"]))
+            / (1e3 * float(r["primary_profiled_s"])) for r in res],
+        capture_s=[float(r["primary_capture_s"]) for r in res],
+        kernel_runs=[int(r["primary_kernel_runs"][-1]) for r in res],
+        step_eager_s=[float(r["step_walls"][0]) for r in res],
+        step_s=[med(r["step_replay_walls"]) for r in res],
+        step_capture_s=[float(r["step_capture_s"]) for r in res],
+        step_off_bound=worst,
+        kerr_s=[list(map(float, r["kerr_walls"])) for r in res],
+        kerr_one_card_s=[list(map(float, r["kerr_unsharded_walls"]))
+                         for r in res],
+        forward_s=[float(r["dt"]) for r in res])
+    return row, bad
+
+
+def multicard_phase(tmp):
+    """4n: the lane-sharded user paths at full width on several cards, one
+    rank of `rrt_tpu_torch.parallel.worker` a card in one NCCL group, with
+    CUDA graphs around every collective, on 2 cards, then 3, up to all of
+    them or 4. The one-card
+    reference runs here on card 0 before any rank starts
+    (`worker.full_reference`), and the kernels are built here first, so
+    that no rank compiles. Each rank (`worker.CARD_CHECKS`):
+      - the primary render (256², 16 spp, -l 4, -m 5), a tail pass (10
+        spp, k = 4), adaptive (k = 2) and a stop on the last rank alone,
+        each three renders, equal to the one-card unsharded render bit for
+        bit, kernel runs equal to trace calls, no Python launch once the
+        passes replay; the primary's walls in turns with the unsharded
+        render on the rank's own card, host launches, busy share,
+        collectives and bytes of a steady render;
+      - phase 4b's 256² step through `LossAndGrad(mesh=)`, three calls
+        (eager, captured, replayed), each equal to the rank's eager
+        `loss_and_grad(mesh=)` bit for bit; the last within the order-free
+        bound of the ranks' shares summed here (`worker.off_bound`; bit for
+        bit on 2 ranks) and within rtol 1e-4 (material leaves) and 5e-3
+        (the hole's) of the unsharded step;
+      - Kerr config 5 (1024², 600 steps) equal to the one-card frame bit
+        for bit;
+      - the per-trace `mesh=` forward equal to the unsharded one.
+    Then `scaling_bench --size 1024` (1, 2 and 4 ranks) and its
+    `--breakdown` under the largest group. On one card it prints that it
+    did not run and returns None."""
+    import subprocess
+    import torch
+    from rrt_tpu_torch.ops import build
+    from rrt_tpu_torch.parallel import worker
+    from rrt_tpu_torch.tools.scaling_bench import (free_port, run_ranks,
+                                                   spawn_workers)
+    from rrt_tpu_torch.utils.card import card_lines, topology
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[smoke] phase 4n: not run: {n_cards} card, needs 2 or more")
+        return None
+    top = min(n_cards, 4)
+    worlds = list(range(2, top + 1))
+    cards = card_lines()
+    for i, line in enumerate(cards):
+        print(f"[smoke] card {i}: {line}")
+    topo = topology()
+    print("[smoke] nvidia-smi topo -m:\n" + topo)
+    t_phase = time.perf_counter()
+    build.build_all()
+    dev0 = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    ref = worker.full_reference(dev0, worlds)
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"[smoke] 4n: the one-card reference on card 0 in {ref_s:.1f} s "
+          f"({cards[0]})")
+    out = dict(cards=cards, topology=topo, reference_s=ref_s, worlds={})
+    for world in worlds:
+        t0 = time.perf_counter()
+        res, logs = spawn_workers(
+            world, str(worker.FULL_SIZE), tmp, device="cuda",
+            backend="nccl", checks=",".join(worker.CARD_CHECKS),
+            timeout=420, env=dict(NCCL_DEBUG="INFO"))
+        wall = time.perf_counter() - t0
+        via, version = _nccl_transports(logs)
+        transport = ", ".join(via) or "no transport reported"
+        row, bad = check_world(world, res, ref)
+        row.update(ranks=world, seconds=wall, nccl=via, nccl_version=version)
+        slow = max(row["primary_s"])
+        one = float(np.median(row["one_card_s"]))
+        row.update(slowest_s=slow, ratio=one / slow,
+                   lanes_per_s=worker.FULL_SIZE ** 2 * 16 / slow)
+        out["worlds"][world] = row
+        print(f"[smoke] 4n world {world} over nccl ({transport}; NCCL "
+              f"{', '.join(version)}): primary "
+              f"256² 16 spp sharded, slowest rank's median "
+              f"{slow:.4f} s against the one-card graph render's {one:.4f} s "
+              f"in turns ({row['ratio']:.2f}×, {row['lanes_per_s']:,.0f} "
+              f"lanes/s); host launches a render {row['host_launches']}; "
+              f"{row['collectives']} collectives, {row['collective_bytes']} "
+              f"bytes a render of {row['passes']} pass(es) on rank 0; busy "
+              f"{[round(b, 3) for b in row['busy']]} (NCCL's kernels "
+              f"{[round(b, 1) for b in row['nccl_ms']]} ms of it; without "
+              f"them {[round(b, 3) for b in row['busy_without_nccl']]}); "
+              f"pass captures "
+              f"{[round(c, 3) for c in row['capture_s']]} s; step "
+              f"{[round(s, 4) for s in row['step_s']]} s replayed, eager "
+              f"{[round(s, 3) for s in row['step_eager_s']]} s, capture "
+              f"{[round(s, 2) for s in row['step_capture_s']]} s, at most "
+              f"{row['step_off_bound']:.3g} bounds off the shares' sum; Kerr "
+              f"config 5 sharded {row['kerr_s']} s, on one card "
+              f"{row['kerr_one_card_s']} s in turns (each frame captures its "
+              f"blocks); forward {[round(f, 5) for f in row['forward_s']]} "
+              f"s; kernels "
+              f"built before the ranks {row['build_cached']}; "
+              f"{wall:.1f} s with the processes' start ({cards[0]} × "
+              f"{world})")
+        if bad:
+            raise AssertionError(f"4n world {world}: " + "; ".join(bad))
+        print(f"[smoke] 4n world {world}: primary, tail, adaptive and stop "
+              f"renders equal to the one-card render bit for bit on every "
+              f"rank; the step equal to eager at every call and within the "
+              f"shares' bound; Kerr config 5 and the mesh= forward equal")
+
+    configs = ",".join(f"{w}x1" for w in [1] + worlds)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    sb = subprocess.run(
+        [sys.executable, "-m", "rrt_tpu_torch.tools.scaling_bench",
+         "--configs", configs, "--size", "1024"], env=env,
+        capture_output=True, text=True, timeout=600)
+    print(f"[smoke] scaling_bench --configs {configs} --size 1024 "
+          f"({time.perf_counter() - t0:.1f} s):")
+    for line in sb.stdout.strip().splitlines():
+        print(f"[smoke]   {line}")
+    if sb.returncode != 0:
+        raise AssertionError(f"scaling_bench failed ({sb.returncode}):\n"
+                             f"{sb.stderr[-3000:]}")
+    out["scaling_bench"] = sb.stdout
+    world, port = worlds[-1], free_port()
+    logs = run_ranks(
+        [[sys.executable, "-m", "rrt_tpu_torch.tools.scaling_bench",
+          "--breakdown", "--size", "1024"]] * world,
+        [os.path.join(tmp, f"breakdown{i}.log") for i in range(world)],
+        [dict(env, RRT_COORDINATOR=f"127.0.0.1:{port}",
+              RRT_NUM_PROCESSES=str(world), RRT_PROCESS_ID=str(i))
+         for i in range(world)], timeout=300)
+    rows = [json.loads([line for line in log.splitlines()
+                        if line.startswith("{")][-1]) for log in logs]
+    for row in rows:
+        print(f"[smoke] scaling_bench --breakdown --size 1024, world "
+              f"{world}: {json.dumps(row)} ({cards[0]})")
+    out["breakdown"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[smoke] phase 4n: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="smoke test of the port on "
@@ -1526,6 +1786,9 @@ def main(argv=None):
     ap.add_argument("--old-envmap", metavar="PATH",
                     help="an earlier scene/envmap.py whose sample_L is "
                     "checked equal to this one's and timed with it in turns")
+    ap.add_argument("--phase", choices=("4n",),
+                    help="run phases 1-2 and this phase alone (4n: the "
+                    "sharded paths on 2 and up to 4 cards)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1597,6 +1860,16 @@ def main(argv=None):
     print(f"[smoke] trace kernel, curved instances: at most {registers} "
           f"registers, {spill_bytes} spill bytes, "
           f"{max(v[2] for v in curved_ptx)} stack bytes")
+    if args.phase == "4n":
+        with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+            multi = multicard_phase(tmp)
+        print("[smoke] phase 4n: " + json.dumps(multi))
+        if multi is None:
+            raise SystemExit("chip_smoke --phase 4n: needs 2 or more cards")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     peak = fp32_peak_flops(dev, max_sm_clock_mhz())
 
     # ---- 3a. kernel vs plain version, seeded rays, three scenes
@@ -2105,6 +2378,10 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         graphs_out = graphs_phase(dev, card, tmp)
 
+    # ---- 4n. the sharded paths on several cards over NCCL
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        multi = multicard_phase(tmp)
+
     # ---- 5. the bench, in-process: the probe kernel and the trace kernel
     tk.reset_counts()
     tprobe.LAUNCHES = 0
@@ -2139,6 +2416,8 @@ def main(argv=None):
     print(f"[smoke] phases 4j-4l: " + json.dumps(dict(
         sharded=sharded, two_ranks=two, tools=tools_out)))
     print(f"[smoke] phase 4m: " + json.dumps(graphs_out))
+    if multi is not None:
+        print(f"[smoke] phase 4n: " + json.dumps(multi))
 
     # ---- 7. result lines
     ms, plain_ms = times["closest-hit"]
@@ -2191,6 +2470,8 @@ def main(argv=None):
         "sharded_launches": sharded["launches"],
         "sharded_grad_launches": sharded["grad_launches"],
         "two_rank_launches": two["launches"],
+        "multicard_launches": None if multi is None else {
+            w: r_["kernel_runs"] for w, r_ in multi["worlds"].items()},
         "run_config_launches": {i: c["launches"] for i, c in
                                 tools_out["configs"].items()},
         "kbench_launches": {name: [r_["launches"] for r_ in rows_]

@@ -9,8 +9,9 @@ port of tools/scaling_bench.py). Three modes:
     the group is gloo. On cards it is NCCL while every process has a
     card of its own, and gloo when P processes share fewer cards (NCCL
     refuses two ranks on one card). Prints each config's lanes/s (the
-    frame's lanes over the slowest rank's warm forward) and its ratio to
-    1x1. Each process gets cores / P intra-op threads.
+    frame's lanes over the slowest rank's median warm forward) and its
+    ratio to 1x1. Each process gets cores / P intra-op threads. On cards
+    the kernels are built once before the ranks start.
 
   --card (alias --tpu): the sharding layer's own cost on one card. A world
     of 1 over NCCL; the same forward (curved, 1 spp, -l 1, -m 2, --size²
@@ -62,12 +63,61 @@ def free_port() -> int:
     return port
 
 
+def run_ranks(cmds, logs, envs, timeout=1200):
+    """Run the processes `cmds` (argv lists, one a rank) at once, each
+    writing its output into its file of `logs`, in its environment of
+    `envs`, and wait for all of them; returns their outputs. If one fails
+    or the time runs out, every rank still running is killed (a rank left
+    waiting in a collective would wait for its peer until NCCL's own
+    timeout) and this raises with the output's tail."""
+    files = [open(log, "w") for log in logs]
+    procs = []
+    try:
+        procs = [subprocess.Popen(cmd, env=e, stdout=f,
+                                  stderr=subprocess.STDOUT)
+                 for cmd, e, f in zip(cmds, envs, files)]
+        deadline = time.monotonic() + timeout
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [i for i, c in enumerate(codes) if c not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                i = failed[0] if failed else codes.index(None)
+                what = (f"failed (rc {codes[i]})" if failed
+                        else f"did not end within {timeout} s")
+                with open(logs[i], errors="replace") as f:
+                    tail = f.read()[-3000:]
+                raise RuntimeError(f"worker {i} of {len(procs)} {what}:\n"
+                                   f"{tail}")
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    out = []
+    for log in logs:
+        with open(log, errors="replace") as f:
+            out.append(f.read())
+    return out
+
+
 def spawn_workers(nproc: int, size: str, tmpdir: str, device="cpu",
-                  backend=None, checks="", timeout=1200, threads=None):
-    """Run `parallel.worker` as nproc processes of one group; returns each
-    rank's npz and output. Raises with a rank's output if it fails."""
+                  backend=None, checks="", timeout=1200, threads=None,
+                  env=None):
+    """Run `parallel.worker` as nproc processes of one group (`run_ranks`);
+    returns each rank's npz and output. On cards the kernels are built
+    here first (`ops.build.build_all`), so that no rank runs nvcc and no
+    rank's time holds a compile (each rank's npz says `build_cached`).
+    `env` adds variables to the ranks' environment."""
+    if torch.device(device).type == "cuda":
+        from rrt_tpu_torch.ops.build import build_all
+        build_all()
     port = free_port()
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     if threads:
         env["OMP_NUM_THREADS"] = str(threads)
     outs = [os.path.join(tmpdir, f"w{nproc}_{i}.npz") for i in range(nproc)]
@@ -75,24 +125,9 @@ def spawn_workers(nproc: int, size: str, tmpdir: str, device="cpu",
     extra = ["--device", device] + (["--backend", backend] if backend
                                     else []) + (["--checks", checks]
                                                 if checks else [])
-    procs = [subprocess.Popen(cmd + [str(i), str(nproc), str(port), outs[i],
-                                     size] + extra,
-                              env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT)
-             for i in range(nproc)]
-    logs = []
-    try:
-        for i, p in enumerate(procs):
-            out, _ = p.communicate(timeout=timeout)
-            logs.append(out.decode(errors="replace"))
-            if p.returncode != 0:
-                raise RuntimeError(f"worker {i} of {nproc} failed (rc "
-                                   f"{p.returncode}):\n{logs[-1][-3000:]}")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    logs = run_ranks([cmd + [str(i), str(nproc), str(port), outs[i], size]
+                      + extra for i in range(nproc)],
+                     [o[:-4] + ".log" for o in outs], [env] * nproc, timeout)
     return [dict(np.load(o)) for o in outs], logs
 
 
@@ -117,9 +152,12 @@ def main_spawn(args):
             lanes = args.size * args.size
             dt = max(float(r["dt"]) for r in res)
             rows.append((nproc, lanes, dt, lanes / dt))
+            cached = [bool(r["build_cached"]) for r in res]
             print(f"{nproc} proc x 1 dev: {lanes} lanes in {dt:.4f}s "
                   f"-> {lanes / dt:,.0f} lanes/s ({backend} on "
-                  f"{args.device})")
+                  f"{args.device}), the slowest rank's median of "
+                  f"{len(res[0]['dts'])} forwards; kernels built before "
+                  f"the ranks: {cached}")
     base = rows[0][3]
     print("\n| procs | devices | lanes/s | vs 1x1 |")
     print("|---|---|---|---|")

@@ -15,16 +15,40 @@ import torch
 FP32_LANES_PER_SM = 128
 
 
-def _smi(query: str) -> str:
+def _smi_lines(query: str) -> list:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def _smi(query: str) -> str:
+    return _smi_lines(query)[0]
 
 
 def card_line() -> str:
     """`name, power limit` of the first card, as nvidia-smi prints them."""
     return _smi("name,power.limit")
+
+
+def card_lines() -> list:
+    """`name, power limit` of every card, one line each, as nvidia-smi
+    prints them."""
+    return _smi_lines("name,power.limit")
+
+
+def topology() -> str:
+    """How the cards are joined (`nvidia-smi topo -m`: NVLink, PCIe), or
+    why it could not be read."""
+    try:
+        out = subprocess.run(["nvidia-smi", "topo", "-m"],
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi topo -m failed: {e}"
+    if out.returncode != 0:
+        return (f"nvidia-smi topo -m failed ({out.returncode}): "
+                f"{(out.stderr or out.stdout).strip()}")
+    return out.stdout.rstrip()
 
 
 def max_sm_clock_mhz() -> float:

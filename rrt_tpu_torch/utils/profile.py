@@ -155,6 +155,9 @@ class CallProfile:
     launches: int = 0  # device events (kernels, copies, fills) in the call
     host_launches: int = 0   # launch calls of the host (`host_launches`)
     graph_launches: int = 0  # of them, graph replays
+    # of device_ms, NCCL's kernels: a collective's kernel runs from its
+    # launch until every peer has joined, so it counts their lateness too
+    nccl_ms: float = 0.0
 
     def report(self) -> str:
         parts = [f"wall {1e3 * self.wall:.1f} ms, device "
@@ -223,4 +226,6 @@ def profile_call(fn, ranges=(), device=None) -> CallProfile:
     return CallProfile(wall=wall, device_ms=device_ms, kernel_ms=kernel_ms,
                        ranges=out, top=rows[:CALL_TOP],
                        launches=sum(n for _, n, _ in rows),
-                       host_launches=n, graph_launches=graphs)
+                       host_launches=n, graph_launches=graphs,
+                       nccl_ms=sum(ms for name, _, ms in rows
+                                   if "nccl" in name.lower()))

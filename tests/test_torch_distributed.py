@@ -15,7 +15,9 @@ single-process runs of the same work (`worker.reference`):
   * `LossAndGrad(mesh=)` over three calls (all eager on the CPU, its two
     halves around the all-reduce): every call equal to the rank's
     `loss_and_grad(mesh=)` bit for bit, and the last call equal bit for
-    bit to the two ranks' shares computed and summed in this process;
+    bit to the two ranks' shares computed and summed in this process, at
+    distance 0 inside the order-free bound that three and four ranks are
+    held to (which rejects a sum two bounds away);
   * a 32×32, 80-step Kerr `render_image(sharding=)` and `kerr_cli
     --sharded` equal the single-process image (rtol 1e-6, atol 1e-7, as
     tests/test_kerr.py holds it);
@@ -116,6 +118,23 @@ def test_sharded_step_equals_eager_and_single_process(runs, rank):
         np.testing.assert_array_equal(r[f"step_{leaf}"], ref[f"step_{leaf}"],
                                       err_msg=leaf)
     assert np.abs(r["step_bh_radius"]).max() > 0
+
+
+def test_two_rank_step_is_exact_inside_the_order_free_bound(runs):
+    """The bound that three and four ranks are held to
+    (tests/test_torch_multirank.py, `worker.off_bound`) is not vacuous:
+    the two ranks' step sits at distance 0 from their shares' sum, and a
+    value two bounds away from it is rejected."""
+    res, _, ref = runs
+    for leaf in ("loss",) + MATERIAL + HOLE:
+        shares = ref[f"step_shares_{leaf}"]
+        assert shares.shape[0] == 2
+        b, bound = worker.sum_bound(shares)
+        assert (bound > 0).all() and (bound < 1e-6 * np.abs(b).max()
+                                      + 1e-30).all(), leaf
+        for r in res:
+            assert worker.off_bound(r[f"step_{leaf}"], shares) == 0.0, leaf
+        assert worker.off_bound(b + 2 * bound, shares) > 1.0, leaf
 
 
 @pytest.mark.parametrize("key", ["kerr", "cli"])

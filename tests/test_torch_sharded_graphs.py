@@ -276,13 +276,13 @@ def _parity_problem():
     return (js, jbh, jrays, cfg, key), (ts, trays, tp), target, draws
 
 
-def _rank(rank: int, store: str, out: str):
-    """One gloo rank of the parity test: `LossAndGrad(mesh=)` called twice
-    and `loss_and_grad(mesh=)` once on the shared uniforms (each rank's
-    window of them); writes the step's loss and gradients and whether
-    each call equalled the eager step."""
+def _rank(rank: int, store: str, out: str, world: int = 2):
+    """One gloo rank of the parity test (of `world` ranks):
+    `LossAndGrad(mesh=)` called twice and `loss_and_grad(mesh=)` once on
+    the shared uniforms (each rank's window of them); writes the step's
+    loss and gradients and whether each call equalled the eager step."""
     dist.init_process_group("gloo", init_method=f"file://{store}",
-                            world_size=2, rank=rank)
+                            world_size=world, rank=rank)
     try:
         mesh = sh.make_mesh("cpu")
         (_, _, _, cfg, _), (ts, trays, tp), target, draws = _parity_problem()
@@ -310,30 +310,32 @@ def _rank(rank: int, store: str, out: str):
         dist.destroy_process_group()
 
 
-def test_sharded_step_matches_jax_sharded_value_and_grad(tmp_path):
-    """The sharded step on two gloo ranks (two processes, each
-    `LossAndGrad(mesh=)` over its block) against the JAX package's
+def jax_parity(tmp_path, world: int, threads: int):
+    """The sharded step on `world` gloo ranks (processes running this
+    file, each `LossAndGrad(mesh=)` over its block, `threads` intra-op
+    threads each) against the JAX package's
     `jax.jit(jax.value_and_grad(image_loss))` over rays and target sharded
-    on a 2-device virtual CPU mesh (tests/test_sharding.py's
+    on a `world`-device virtual CPU mesh (tests/test_sharding.py's
     `P("batch")`), on the flat direct-lit box with the uniforms JAX draws
-    handed to the port: both ranks hold the same loss and gradients, each
+    handed to the port: every rank holds the same loss and gradients, each
     call equal to the eager `loss_and_grad(mesh=)` bit for bit, and the
-    loss and the reflectance and light gradients within
-    MATERIAL_RTOL (rtol 1e-4, the material leaves' tolerance of
+    loss and the reflectance and light gradients within MATERIAL_RTOL
+    (rtol 1e-4, the material leaves' tolerance of
     tests/test_torch_distributed.py and tests/test_sharding.py) of
     JAX's."""
     store = str(tmp_path / "store")
-    outs = [str(tmp_path / f"rank{i}.npz") for i in range(2)]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
+    outs = [str(tmp_path / f"rank{i}.npz") for i in range(world)]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS=str(threads),
                PYTHONPATH=os.pathsep.join(
                    [REPO, os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(i), store, outs[i]],
+        [sys.executable, os.path.abspath(__file__), str(i), store, outs[i],
+         str(world)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for i in range(2)]
+        for i in range(world)]
     try:
         (js, jbh, jrays, cfg, key), _, target, _ = _parity_problem()
-        mesh = Mesh(np.array(jax.devices()[:2]), ("batch",))
+        mesh = Mesh(np.array(jax.devices()[:world]), ("batch",))
         lanes, whole = NamedSharding(mesh, P("batch")), NamedSharding(
             mesh, P())
         jrays = jax.tree_util.tree_map(lambda a: jax.device_put(a, lanes),
@@ -368,5 +370,10 @@ def test_sharded_step_matches_jax_sharded_value_and_grad(tmp_path):
                                    err_msg=name)
 
 
+def test_sharded_step_matches_jax_sharded_value_and_grad(tmp_path):
+    """`jax_parity` on two ranks and a 2-device mesh."""
+    jax_parity(tmp_path, 2, 2)
+
+
 if __name__ == "__main__":
-    _rank(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+    _rank(int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4]))
