@@ -96,8 +96,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    the unsharded graph renderer, bit for bit, with the kernel's runs
    equal to the trace calls, at 256×256, 16 spp, -l 4, -m 5, with a tail
    pass and adaptive (walls in turns, host launches a pass, busy share,
-   capture seconds, pool); `trace`/`occluded(mesh=)` on 65,536 seeded rays
-   equal to the unsharded queries; phase 4b's gradient step through
+   capture seconds, pool); `trace(mesh=)` on 65,536 seeded rays compiled
+   (its collectives inside the graph) and `occluded(mesh=)`, equal to the
+   unsharded queries; the per-trace forward `est_radiance(mesh=)` at
+   1024² (1,048,576 lanes), flat and curved, as one CUDA graph with its
+   NCCL gathers and all-reduces inside, equal bit for bit to itself eager
+   and to the unsharded graph forward, radiance and counters (walls in
+   turns, host launches a forward, collectives and bytes, capture
+   seconds, graph pool); phase 4b's gradient step through
    `LossAndGrad(mesh=)`, compiled (two graphs around the all-reduce)
    against eager bit for bit, and against the unsharded step (rtol 1e-4
    on the material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at
@@ -111,8 +117,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    the two ranks' shares summed in this process bit for bit; the kernel's
    runs equal the trace calls in each rank; each rank's times;
 4l. the tools: `scaling_bench --card` (sharded against unsharded, in
-   turns), `run_config` configs 1-3 (the box at 256² 4 spp direct;
-   `cbox_dense` and the mirror and glass box at 512² 64 spp, -m 5 -l 1:
+   turns, both compiled), `run_config` configs 1-3 (the box at 256² 4 spp
+   direct; `cbox_dense` and the mirror and glass box at 512² 64 spp, -m 5
+   -l 1:
    a finite, lit image, launches equal to trace calls; their JSON
    lines) and `kbench 20` on `cbox_dense` and the Cornell box;
 4m. the compiled pass: every renderer above captures each pass shape as a
@@ -135,11 +142,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    the one-card render made here on card 0 before the ranks start; the
    sharded 256² step equal to eager at every call and within the
    order-free bound of the ranks' shares summed here; Kerr config 5 equal
-   to the one-card frame; the per-trace `mesh=` forward equal to the
-   unsharded one; walls in turns with the one-card render, host
+   to the one-card frame; the per-trace `mesh=` forward at 1024², flat
+   and curved, compiled with its collectives inside the graph, equal to
+   itself eager and to the unsharded forward (as in 4j); walls in turns
+   with the one-card render, host
    launches, collectives and bytes, busy share, capture seconds, the
    NCCL transport (`NCCL_DEBUG=INFO`); then `scaling_bench --size 1024`
-   over 1, 2, ... ranks and its `--breakdown` under the largest group.
+   over 1, 2, ... ranks and its `--breakdown` under the largest group
+   (the JAX tool's keys, every forward compiled).
    On one card it prints `[smoke] phase 4n: not run: 1 card, needs 2 or
    more` and the smoke goes on. `--phase 4n` runs phases 1-2 and 4n
    alone;
@@ -1284,15 +1294,54 @@ def sharded_render_case(dev, card, name, scene, cam, cfg, sharding, reps=3):
     return row
 
 
+def forward_case_check(name, row, card):
+    """Print one per-trace forward case of `scaling_bench.forward_case`
+    (phases 4j and 4n) and return what failed: not compiled, not equal
+    to eager or to unsharded, a count off, or ten host launches or more
+    in a replayed forward."""
+    w, coll = row["walls"], row["collectives"]
+    hl = row["host_launches"]
+    print(f"[smoke] per-trace forward est_radiance(mesh=), {name}: "
+          f"{row['size']}² {'curved' if row['curved'] else 'flat'} over "
+          f"{row['backend']}, compiled {row['compiled']}: equal to eager "
+          f"{row['equal_eager']}, to unsharded {row['equal_unsharded']} "
+          f"({row['calls']} calls, radiance and counters); walls in turns "
+          f"graph {_spread(w['graph'])}, eager {_spread(w['eager'])}, "
+          f"unsharded graph {_spread(w['unsharded'])}; host launches a "
+          f"forward graph {hl['graph']}, eager {hl['eager']}, unsharded "
+          f"graph {hl['unsharded']}; {coll['calls']} collectives, "
+          f"{coll['bytes']} bytes a forward (a replay adds "
+          f"{row['graph_collectives']}); capture {row['capture_s']:.3f} s; "
+          f"graph pool {row['pool_mib']:.1f} MiB"
+          + (f" ({card})" if card else ""))
+    bad = list(row["faults"])
+    if not (row["compiled"] and row["equal_eager"]
+            and row["equal_unsharded"]):
+        bad.append(f"compiled {row['compiled']}, equal to eager "
+                   f"{row['equal_eager']}, to unsharded "
+                   f"{row['equal_unsharded']}")
+    if row["graph_collectives"] != coll:
+        bad.append(f"the graph holds {row['graph_collectives']} "
+                   f"collectives, the eager forward makes {coll}")
+    if hl["graph"] is None or hl["graph"] >= 10:
+        bad.append(f"{hl['graph']} host launches in a replayed forward")
+    return bad
+
+
 def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
-                  kerr_size=64, kerr_steps=300):
+                  kerr_size=64, kerr_steps=300, forward_size=1024):
     """4j: the lane-sharded main path at full width on a world of 1 over
     NCCL, compiled: `Renderer(sharding=)` with graphs (the rank half and
     the accumulate half of each pass captured, the gather between them)
     against the eager sharded and the unsharded graph renders, bit for
     bit, on the primary (256×256, 16 spp, -l 4, -m 5), a tail pass and an
-    adaptive render (`sharded_render_case`); `trace`/`occluded(mesh=)` on
-    65,536 seeded rays (the per-trace route, eager; equal); phase 4b's
+    adaptive render (`sharded_render_case`); `trace(mesh=)` on 65,536
+    seeded rays compiled (its gather and all-reduce inside the graph; one
+    kernel run a call) and `occluded(mesh=)`, equal to the unsharded
+    queries; the per-trace forward `est_radiance(mesh=)` at 1024², flat
+    and curved, compiled as one graph with its collectives inside, against
+    itself eager and the unsharded graph (`scaling_bench.forward_case`,
+    `forward_case_check`); phase 4b's
     gradient step through `LossAndGrad(mesh=)` compiled (half A and half
     B around the all-reduce) against eager bit for bit (`grad_step_case`),
     and the eager sharded step against the unsharded one (rtol 1e-4 on the
@@ -1312,10 +1361,11 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
     from rrt_tpu_torch.render.renderer import make_black_hole
     from rrt_tpu_torch.scene.build import load_scene
     from rrt_tpu_torch.scenes import CBOX_SPHERES
-    from rrt_tpu_torch.tools import inverse
+    from rrt_tpu_torch.tools import inverse, scaling_bench
     from rrt_tpu_torch.tools.scaling_bench import free_port
     from rrt_tpu_torch.tools.trace_modes import BOX, box_rays
     from rrt_tpu_torch.utils.config import RenderConfig
+    from rrt_tpu_torch.utils.graphs import CapturedCall
     out = {}
     pdist.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
     try:
@@ -1348,21 +1398,46 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
         for occ in (False, True):
             h, st = tracer.trace(scene, bh, rays, return_stats=True,
                                  occlusion=occ, tables=tab)
-            tk.LAUNCHES = 0
-            hm, stm = tracer.trace(scene, bh, rays, return_stats=True,
-                                   occlusion=occ, tables=tab, mesh=mesh)
-            if tk.LAUNCHES != 1:
-                raise AssertionError(f"trace(mesh=): {tk.LAUNCHES} launches")
-            same = all(torch.equal(getattr(hm, f), getattr(h, f)) for f in
-                       ("hit", "t", "p", "n", "w_out", "prim_id", "bsdf_id"))
-            if not (same and torch.equal(stm, st)):
-                raise AssertionError(f"trace(mesh=, occlusion={occ}) differs")
+            # compiled, its gather and all-reduce inside the graph: eager,
+            # captured and replayed, then replayed; the kernel's own count
+            # of its runs on each call
+            call = CapturedCall(lambda: tracer.trace(
+                scene, bh, rays, return_stats=True, occlusion=occ,
+                tables=tab, mesh=mesh), dev, name="trace(mesh=)")
+            for i in range(3):
+                tk.reset_counts()
+                hm, stm = call()
+                if tk.kernel_runs() != 1 or tk.LAUNCHES != (i == 0):
+                    raise AssertionError(
+                        f"trace(mesh=) call {i}: {tk.kernel_runs()} kernel "
+                        f"runs, {tk.LAUNCHES} eager launches")
+                same = all(torch.equal(getattr(hm, f), getattr(h, f))
+                           for f in ("hit", "t", "p", "n", "w_out",
+                                     "prim_id", "bsdf_id"))
+                if not (same and torch.equal(stm, st)):
+                    raise AssertionError(f"trace(mesh=, occlusion={occ}) "
+                                         f"call {i} differs")
         o = tracer.occluded(scene, bh, rays, tables=tab)
         if not torch.equal(tracer.occluded(scene, bh, rays, tables=tab,
                                            mesh=mesh), o):
             raise AssertionError("occluded(mesh=) differs")
-        print(f"[smoke] trace(mesh=) and occluded(mesh=) on {n_rays} seeded "
-              f"rays: equal to the unsharded queries, counters too")
+        print(f"[smoke] trace(mesh=) on {n_rays} seeded rays, compiled "
+              f"(eager, captured, replayed; one kernel run a call), and "
+              f"occluded(mesh=): equal to the unsharded queries, counters "
+              f"too")
+
+        # the per-trace forward est_radiance(mesh=) at 1024², flat and
+        # curved: one graph with its collectives inside
+        out["forwards"] = {}
+        for kind in ("flat", "curved"):
+            row = scaling_bench.forward_case(mesh, forward_size,
+                                             kind == "curved")
+            bad = forward_case_check(f"{kind}, a world of 1", row, card)
+            if bad:
+                raise AssertionError(f"per-trace forward {kind}: "
+                                     + "; ".join(bad))
+            out["forwards"][kind] = row
+            torch.cuda.empty_cache()
 
         dcfg = cfg.replace(ns_aa=1)
         dbh = make_black_hole(dcfg, dev)
@@ -1496,7 +1571,8 @@ def two_process_phase(dev, card, tmp, size="255x255"):
 
 def tools_phase(dev, card):
     """4l: `scaling_bench --card` (the sharding layer's cost: sharded and
-    unsharded forwards of 65,536 lanes in turns, equal results),
+    unsharded forwards of 65,536 lanes in turns, both compiled, equal
+    results),
     `run_config` for configs 1-3 (a finite image with mean > 0, launches
     equal to trace calls) and `kbench 20` on cbox_dense and the Cornell
     box (launches equal to trace calls)."""
@@ -1504,8 +1580,9 @@ def tools_phase(dev, card):
     from rrt_tpu_torch.tools import kbench, run_config, scaling_bench
     gap = scaling_bench.card_gap(256)
     print(f"[smoke] scaling_bench --card: {json.dumps(gap)}")
-    if not gap["equal"]:
-        raise AssertionError("scaling_bench --card: sharded != unsharded")
+    if not (gap["equal"] and all(gap["compiled"].values())):
+        raise AssertionError(f"scaling_bench --card: sharded != unsharded "
+                             f"or not compiled {gap['compiled']}")
     configs = {}
     for i in sorted(run_config.CONFIGS):
         res, hdr, report = run_config.run(run_config.CONFIGS[i]
@@ -1607,11 +1684,14 @@ def check_world(world, res, ref):
                 and bool(r["kerr_same"])):
             bad.append(f"rank {rank}: Kerr differs from the one-card "
                        f"frame")
-        if not (bool(r["mesh_trace_equal"])
-                and int(r["mesh_trace_launches"]) > 0):
-            bad.append(f"rank {rank}: est_radiance(mesh=) differs or "
-                       f"launched nothing")
+        for kind in ("flat", "curved"):
+            case = json.loads(str(r[f"mesh_trace_{kind}"]))
+            bad += [f"rank {rank}: per-trace forward {kind}: {b}" for b in
+                    forward_case_check(f"{kind}, rank {rank} of {world}",
+                                       case, "")]
     med = lambda a: float(np.median(a))
+    cases = {k: [json.loads(str(r[f"mesh_trace_{k}"])) for r in res]
+             for k in ("flat", "curved")}
     row = dict(
         build_cached=[bool(r["build_cached"]) for r in res],
         primary_s=[med(r["primary_walls"]) for r in res],
@@ -1636,7 +1716,17 @@ def check_world(world, res, ref):
         kerr_s=[list(map(float, r["kerr_walls"])) for r in res],
         kerr_one_card_s=[list(map(float, r["kerr_unsharded_walls"]))
                          for r in res],
-        forward_s=[float(r["dt"]) for r in res])
+        forward_s=[float(r["dt"]) for r in res],
+        per_trace_s={k: [med(c["walls"]["graph"]) for c in v]
+                     for k, v in cases.items()},
+        per_trace_eager_s={k: [med(c["walls"]["eager"]) for c in v]
+                           for k, v in cases.items()},
+        per_trace_unsharded_s={k: [med(c["walls"]["unsharded"]) for c in v]
+                               for k, v in cases.items()},
+        per_trace_host_launches={k: [c["host_launches"] for c in v]
+                                 for k, v in cases.items()},
+        per_trace_collectives={k: v[0]["collectives"]
+                               for k, v in cases.items()})
     return row, bad
 
 
@@ -1663,10 +1753,12 @@ def multicard_phase(tmp):
         (the hole's) of the unsharded step;
       - Kerr config 5 (1024², 600 steps) equal to the one-card frame bit
         for bit;
-      - the per-trace `mesh=` forward equal to the unsharded one.
+      - the per-trace `mesh=` forward at 1024², flat and curved, one
+        graph with its collectives inside, equal to itself eager and to
+        the unsharded forward (`scaling_bench.forward_case`).
     Then `scaling_bench --size 1024` (1, 2 and 4 ranks) and its
-    `--breakdown` under the largest group. On one card it prints that it
-    did not run and returns None."""
+    `--breakdown` under the largest group, every forward compiled. On one
+    card it prints that it did not run and returns None."""
     import subprocess
     import torch
     from rrt_tpu_torch.ops import build
@@ -1731,7 +1823,14 @@ def multicard_phase(tmp):
               f"config 5 sharded {row['kerr_s']} s, on one card "
               f"{row['kerr_one_card_s']} s in turns (each frame captures its "
               f"blocks); forward {[round(f, 5) for f in row['forward_s']]} "
-              f"s; kernels "
+              f"s; per-trace forward at {worker.MESH_TRACE_SIZE}² "
+              f"(graph, slowest rank's median) "
+              + ", ".join(f"{k} {max(v):.4f} s (eager "
+                          f"{max(row['per_trace_eager_s'][k]):.4f} s, "
+                          f"unsharded graph "
+                          f"{max(row['per_trace_unsharded_s'][k]):.4f} s)"
+                          for k, v in row["per_trace_s"].items())
+              + f"; kernels "
               f"built before the ranks {row['build_cached']}; "
               f"{wall:.1f} s with the processes' start ({cards[0]} × "
               f"{world})")
@@ -1740,7 +1839,8 @@ def multicard_phase(tmp):
         print(f"[smoke] 4n world {world}: primary, tail, adaptive and stop "
               f"renders equal to the one-card render bit for bit on every "
               f"rank; the step equal to eager at every call and within the "
-              f"shares' bound; Kerr config 5 and the mesh= forward equal")
+              f"shares' bound; Kerr config 5 equal; the per-trace "
+              f"forward, compiled, equal to eager and to unsharded")
 
     configs = ",".join(f"{w}x1" for w in [1] + worlds)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -1770,6 +1870,12 @@ def multicard_phase(tmp):
     for row in rows:
         print(f"[smoke] scaling_bench --breakdown --size 1024, world "
               f"{world}: {json.dumps(row)} ({cards[0]})")
+        keys = ("flat_sharded_ms", "flat_device0_ms", "flat_collectives",
+                "flat_block_sharded_ms", "curved_nosort_ms")
+        if not (all(row.get(k) for k in keys)
+                and all(row["compiled"].values())):
+            raise AssertionError(f"scaling_bench --breakdown: a key missing "
+                                 f"or a forward not compiled: {row}")
     out["breakdown"] = rows
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[smoke] phase 4n: {out['seconds']:.1f} s")

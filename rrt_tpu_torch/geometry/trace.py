@@ -47,19 +47,22 @@ def _trace_sharded(scene, bh, tab: TraceTables, rays: Rays, mesh,
     (`shard_bounds`) on the kernel; the Hit fields (and the winning
     chords) are gathered and cut to the batch, the (2,) counters summed.
     A lane's result does not depend on its batch, so the result equals
-    the unsharded trace bit for bit; the counters also hold the padded
-    lanes' tests (none in curved mode, one box test a part and one for
-    the sphere box in flat mode). Returns (Hit, chords or None,
-    counters)."""
+    the unsharded trace bit for bit. The counters too: each rank counts
+    the tests of its block's lanes of the batch, leaving the padded lanes
+    out (in flat mode each costs one box test a part and one for the
+    sphere box; the JAX package's psum counts them), and integer counts
+    sum exactly in any order. Returns (Hit, chords or None, counters)."""
     shape = rays.o.shape[:-1]
     flat = Rays(o=rays.o.reshape(-1, 3), d=rays.d.reshape(-1, 3),
                 min_t=rays.min_t.reshape(-1), max_t=rays.max_t.reshape(-1))
     n = flat.min_t.shape[0]
     padded = sh.pad_dead_lanes(flat, sh.pad_to_multiple(n, mesh.world),
                                bh if tab.curved else None)
+    lo, hi = sh.shard_bounds(n, mesh.rank, mesh.world)
     out = kernel_trace(scene, tab, sh.shard_batch(padded, mesh),
                        occlusion=occlusion, return_seg=return_seg,
-                       return_stats=True)
+                       return_stats=True,
+                       stats_lanes=max(0, min(hi, n) - lo))
     names = [f.name for f in dataclasses.fields(Hit)]
     parts = [getattr(out[0], k) for k in names] + list(out[1:-1])
     whole = [a.reshape(tuple(shape) + a.shape[1:])

@@ -679,14 +679,17 @@ def trace_rays(tab: TraceTables, o, d, min_t, max_t,
 
 def kernel_trace(scene: SceneData, tab: TraceTables, rays: Rays,
                  occlusion: bool = False, return_seg: bool = False,
-                 return_stats: bool = False):
+                 return_stats: bool = False,
+                 stats_lanes: Optional[int] = None):
     """Closest (or any) hit of a ray batch through `trace_rays`, in the
     tables' mode (`build_tables(scene, bh)`), with the shading payload
     rebuilt outside: the winning triangle's barycentrics are re-derived
     and clamped to the simplex (trace_kernel.py:1977-1996) before
     `build_hit`. The port of `pallas_trace`, without its lane sort.
     Returns Hit, plus the (n,) winning segment with `return_seg`, plus
-    the summed (2,) [primitive tests, bbox tests] with `return_stats`."""
+    the summed (2,) [primitive tests, bbox tests] with `return_stats`,
+    over the first `stats_lanes` lanes when given (a sharded trace
+    leaves its padded lanes out)."""
     shape = rays.o.shape[:-1]
     f32 = torch.float32
     o = rays.o.reshape(-1, 3).to(f32).contiguous()
@@ -717,6 +720,7 @@ def kernel_trace(scene: SceneData, tab: TraceTables, rays: Rays,
     if return_seg:
         out += (r.seg.reshape(shape),)
     if return_stats:
-        out += (torch.stack([r.nisect.sum(dtype=torch.float64),
-                             r.ncull.sum(dtype=torch.float64)]),)
+        m = stats_lanes
+        out += (torch.stack([r.nisect[:m].sum(dtype=torch.float64),
+                             r.ncull[:m].sum(dtype=torch.float64)]),)
     return out if len(out) > 1 else h

@@ -23,12 +23,21 @@ Every collective goes through `_collective`, which counts its calls and
 the bytes this rank hands it in `COLLECTIVES`. The transport follows the
 backend: NCCL takes device tensors, gloo host copies.
 
-A compiled sharded program (a pass, a gradient step) is two CUDA graphs
-around its one collective: the first graph writes the collective's input
-into a static buffer (the pass its block of radiance, the step its loss
-and gradients packed flat), the collective runs eagerly between the
-replays, and the second graph reads its static output. So every backend
-serves them, gloo's host copies included.
+A compiled sharded program takes one of two forms. The renderer's pass
+and the gradient step are two CUDA graphs around their one collective:
+the first graph writes the collective's input into a static buffer (the
+pass its block of radiance, the step its loss and gradients packed
+flat), the collective runs eagerly between the replays, and the second
+graph reads its static output, so every backend serves them, gloo's host
+copies included. The per-trace forward (`render/integrator.Forward`
+with a mesh) is one graph with a gather and an all-reduce at every trace
+inside it: NCCL's collectives are kernels on the device, and a capture
+records them like any other (its first call, eager, makes the group's
+communicator). gloo runs its collectives on the host, from host copies,
+which a capture cannot record: a gloo collective made while the current
+stream captures raises (`_collective`). A capture records the Python
+count `COLLECTIVES` once; `utils/graphs.CapturedCall` adds a graph's
+collectives to it at every replay instead.
 """
 from __future__ import annotations
 
@@ -129,10 +138,23 @@ def global_mesh(devices=None) -> LaneMesh:
     return make_mesh(devices)
 
 
+def capturing() -> bool:
+    """Is the current CUDA stream capturing a graph?"""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def _collective(mesh: LaneMesh, x: torch.Tensor, run):
     """Count one collective on `x` and run it as run(dist, x), with `x`
     on the host for gloo and on the device for NCCL; the result comes
-    back on the mesh's device."""
+    back on the mesh's device. A gloo collective inside a capture
+    raises."""
+    if mesh.backend == "gloo" and capturing():
+        raise RuntimeError(
+            "a gloo collective cannot be captured in a CUDA graph: gloo "
+            "runs its collectives on the host, from host copies; capture "
+            "under an NCCL group, or run the collective eagerly between "
+            "graphs")
     COLLECTIVES["calls"] += 1
     COLLECTIVES["bytes"] += x.numel() * x.element_size()
     if mesh.backend == "gloo":

@@ -190,9 +190,13 @@ def pad_dead_lanes(rays: Rays, n_pad: int, bh) -> Rays:
     o = rays.o
     curved = bh is not None and bh.enabled
     po = bh.position.to(o) if curved else o.new_zeros(3)
+    # the fills are made on the device by fill kernels: a host copy (a
+    # tensor from Python values, or an item assignment) breaks a capture
+    x_axis = rays.d.new_zeros(3)
+    x_axis[:1].fill_(1.0)
 
     def cat(a, fill):
-        fill = torch.as_tensor(fill, dtype=a.dtype, device=a.device)
         return torch.cat([a, fill.expand((pad,) + tuple(a.shape[1:]))])
-    return Rays(o=cat(o, po), d=cat(rays.d, [1.0, 0.0, 0.0]),
-                min_t=cat(rays.min_t, 0.0), max_t=cat(rays.max_t, -1.0))
+    return Rays(o=cat(o, po), d=cat(rays.d, x_axis),
+                min_t=cat(rays.min_t, rays.min_t.new_zeros(())),
+                max_t=cat(rays.max_t, rays.max_t.new_full((), -1.0)))

@@ -10,7 +10,7 @@ camera rays through `make_global_batch`, and estimates their radiance as
 its block of the whole batch (`LaneWindow` draws; flat spacetime, 1 spp,
 -l 1, -m 2, as the JAX worker), twice to warm up and `FWD_REPS` times
 timed (`dts`, their median `dt`); on a card the forward is a CUDA graph
-(`utils/graphs.CapturedCall`: the first call eager, the second captured,
+(`render/integrator.Forward`: the first call eager, the second captured,
 later calls replayed), as the JAX worker jits it, so that `dt` is the
 card's time and not the host's launches. It then estimates the whole frame in
 this process alone and holds its rows to rtol 2e-5, atol 2e-6, as the
@@ -33,7 +33,12 @@ to hold against a single-process run (`reference`):
            `loss_and_grad(mesh=)` bit for bit, its trace calls and the
            kernel's runs, and the last call's loss and gradients;
   kerr   — a 32×32, 80-step Kerr image with `render_image(sharding=)`;
-  cli    — `kerr_cli --sharded` at the same settings.
+  cli    — `kerr_cli --sharded` at the same settings;
+  mesh   — the per-trace sharded forward (`est_radiance(mesh=)`) of a W²
+           frame, flat and curved, held in the rank to itself eager and
+           to the unsharded forward (`tools/scaling_bench.forward_case`,
+           one timed call each; compiled on a card over NCCL); its rows
+           as JSON, needing no reference.
 The renders, the step and the Kerr march take the defaults: CUDA graphs
 on a card, around their collectives.
 
@@ -49,7 +54,11 @@ of `CHECKS`, so that the CPU tests never run them:
                 calls, then replays timed;
   full_kerr   — BASELINE config 5's Kerr frame (1024², 600 RK4 steps);
   mesh_trace  — the forward with every trace sharded
-                (`est_radiance(mesh=)`) against this rank's unsharded one.
+                (`est_radiance(mesh=)`), flat and curved, at
+                `MESH_TRACE_SIZE`², compiled with its collectives inside
+                the graph, against itself eager and the unsharded
+                forward on this rank's card
+                (`tools/scaling_bench.forward_case`; its rows as JSON).
 
 The step's reference is the ranks' shares computed in one process. NCCL
 does not say in which order it sums them, so the all-reduce is held to
@@ -60,12 +69,13 @@ bit for bit.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
 
-CHECKS = ("render", "stop", "grad", "step", "kerr", "cli")
+CHECKS = ("render", "stop", "grad", "step", "kerr", "cli", "mesh")
 # the differentiable leaves, in `diff.SceneParams` order
 _LEAVES = ("reflectance", "transmittance", "emission", "eta", "k", "alpha",
            "ior", "light_radiance", "bh_position", "bh_radius",
@@ -301,6 +311,11 @@ def run_checks(checks, w: int, h: int, mesh, out_png: str) -> dict:
                                          **kw)
         if "cli" in checks:
             out["cli"] = kerr_cli.main(cli + ["--sharded"])
+    if "mesh" in checks:
+        from rrt_tpu_torch.tools.scaling_bench import forward_case
+        for kind in ("flat", "curved"):
+            out[f"mesh_{kind}"] = json.dumps(
+                forward_case(mesh, w, kind == "curved", reps=1))
     return out
 
 
@@ -317,6 +332,8 @@ FULL_CASES = {
 }
 FULL_KERR = dict(size=1024, n_steps=600, batch=1 << 20)
 CARD_CHECKS = ("full_render", "full_step", "full_kerr", "mesh_trace")
+# the per-trace forward's frame: the JAX tool's 1024² (1,048,576 lanes)
+MESH_TRACE_SIZE = 1024
 # renders of each case held to the reference (the eager pass, the
 # capture, a replay), and the primary's timed renders in turns
 FULL_RENDERS, FULL_REPS = 3, 5
@@ -407,8 +424,7 @@ def run_card_checks(checks, mesh, w: int, h: int) -> dict:
     from rrt_tpu_torch.parallel import distributed as pdist
     from rrt_tpu_torch.parallel import sharding as sh
     from rrt_tpu_torch.render import diff
-    from rrt_tpu_torch.render.integrator import est_radiance
-    from rrt_tpu_torch.render.renderer import Renderer, pass_generator
+    from rrt_tpu_torch.render.renderer import Renderer
     from rrt_tpu_torch.utils.profile import passes_run, profile_call
     dev = mesh.device
     sharding = sh.batch_sharding(mesh)
@@ -513,13 +529,11 @@ def run_card_checks(checks, mesh, w: int, h: int) -> dict:
                    kerr_walls=np.array(walls["sharded"]),
                    kerr_unsharded_walls=np.array(walls["unsharded"]))
     if "mesh_trace" in checks:
-        scene, bh, tab, cfg, rays = forward_setup(w, h, dev)
-        gen = lambda: pass_generator(cfg.seed, 0, 0, dev)
-        tk.reset_counts()
-        got = est_radiance(scene, bh, rays, cfg, gen(), tab, mesh=mesh)[0]
-        out["mesh_trace_launches"] = tk.LAUNCHES
-        want = est_radiance(scene, bh, rays, cfg, gen(), tab)[0]
-        out["mesh_trace_equal"] = torch.equal(got, want)
+        from rrt_tpu_torch.tools.scaling_bench import forward_case
+        for kind in ("flat", "curved"):
+            row = forward_case(mesh, MESH_TRACE_SIZE, kind == "curved")
+            out[f"mesh_trace_{kind}"] = json.dumps(row)
+            torch.cuda.empty_cache()
     return out
 
 
@@ -543,11 +557,9 @@ def main(argv=None):
         ap.error(f"{','.join(CARD_CHECKS)} run on cards only")
 
     from rrt_tpu_torch.parallel import distributed as pdist
-    from rrt_tpu_torch.parallel.sharding import LaneWindow
-    from rrt_tpu_torch.render.integrator import est_radiance
+    from rrt_tpu_torch.render.integrator import Forward, est_radiance
     from rrt_tpu_torch.render.renderer import pass_generator, pass_seed
     from rrt_tpu_torch.types import Rays
-    from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 
     pdist.initialize(coordinator_address=f"127.0.0.1:{args.port}",
                      num_processes=args.nproc, process_id=args.pid,
@@ -569,17 +581,10 @@ def main(argv=None):
 
     # the forward is compiled on a card (the JAX worker jits it): its
     # first call eager, its second captured, later calls replayed
-    gen = torch.Generator(mesh.device)
-    window = LaneWindow(gen, lo, hi, n)
-    call = (CapturedCall(lambda: est_radiance(scene, bh, rays, cfg, window,
-                                              tab)[0], mesh.device,
-                         generators=(gen,), name="the worker's forward")
-            if mesh.device.type == "cuda" else None)
+    forward = Forward(scene, bh, rays, cfg, tab, window=(lo, hi, n))
 
     def fwd():
-        gen.manual_seed(pass_seed(cfg.seed, 0, 0))
-        return run_call(call, lambda: est_radiance(scene, bh, rays, cfg,
-                                                   window, tab)[0])
+        return forward(pass_seed(cfg.seed, 0, 0))[0]
 
     for _ in range(2):
         fwd()

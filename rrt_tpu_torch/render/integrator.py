@@ -25,6 +25,10 @@ rank's block of a larger batch: every draw takes the whole batch's shape
 and keeps the block's lanes, so that the blocks equal the whole batch's
 estimate. With `mesh=` every trace runs over the mesh's ranks
 (`geometry.trace`), each rank holding the whole batch.
+
+`Forward` is `est_radiance` of one batch as a compiled call, a CUDA
+graph on a card (the counterpart of the JAX package's jitted forward);
+with a mesh over NCCL its per-trace collectives are inside the graph.
 """
 from __future__ import annotations
 
@@ -36,13 +40,14 @@ import torch
 
 from rrt_tpu_torch.geometry import trace as tracer
 from rrt_tpu_torch.ops.trace_kernel import TraceTables
-from rrt_tpu_torch.parallel.sharding import lane_rand, on_axis
+from rrt_tpu_torch.parallel.sharding import LaneWindow, lane_rand, on_axis
 from rrt_tpu_torch.render import bsdf as bsdflib
 from rrt_tpu_torch.render import lights as lightlib
 from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
 from rrt_tpu_torch.utils import math3d as m3
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
+from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 
 PI = math.pi
 RR_PROB = 0.7  # Russian roulette continue probability (part1_code.cpp:82)
@@ -279,3 +284,52 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
     if md >= 2:
         state = vertex(*state, first=False, do_bounce=False, rr=False)
     return state[0], state[4]
+
+
+class Forward:
+    """`est_radiance` of one batch as a compiled call: the port's
+    counterpart of the JAX package's jitted forward, `jax.jit(lambda s, b,
+    r: est_radiance(s, b, r, cfg, key, mesh=mesh))`
+    (rrt_tpu/render/renderer.py:177-182, tools/scaling_bench.py:203-210).
+
+    `rays` are the call's static buffers (copy new rays into them between
+    calls) and `gen` its generator, seeded at every call. With `window` =
+    (lo, hi, n) the rays are the lanes [lo, hi) of a batch of n, and the
+    draws are windowed to them (`LaneWindow`: the block a rank of a
+    sharded pass estimates). With `mesh` every trace runs over its ranks,
+    its gather and its all-reduce inside the call.
+
+    With `graphs` the call is a `CapturedCall`, made at the first call:
+    the first call eager, the second captured and replayed, every later
+    call a replay, the mesh's collectives inside the graph. Graphs are the
+    default on a card, without a mesh or over NCCL; gloo runs its
+    collectives on the host, so a forward over a gloo mesh runs eagerly,
+    and one asked for graphs raises at its capture. A call returns
+    (radiance, TraceWork); with graphs they are the graph's outputs,
+    which the next call overwrites."""
+
+    def __init__(self, scene: SceneData, bh: Optional[BlackHoleParams],
+                 rays: Rays, cfg: RenderConfig, tab: TraceTables,
+                 mesh=None, window=None, graphs: Optional[bool] = None):
+        dev = rays.o.device
+        if graphs and dev.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {dev}")
+        self.graphs = (dev.type == "cuda" and (
+            mesh is None or mesh.backend != "gloo")
+            if graphs is None else bool(graphs))
+        self.device, self.mesh = dev, mesh
+        self.gen = torch.Generator(dev)
+        draws = self.gen if window is None else LaneWindow(self.gen, *window)
+        self.fn = lambda: est_radiance(scene, bh, rays, cfg, draws, tab,
+                                       mesh=mesh)
+        self.call = None
+
+    def __call__(self, seed: int):
+        """The forward with the generator seeded with `seed`."""
+        if self.graphs and self.call is None:
+            route = "per-trace sharded " if self.mesh is not None else ""
+            self.call = CapturedCall(self.fn, self.device,
+                                     generators=(self.gen,),
+                                     name=f"the {route}forward")
+        self.gen.manual_seed(seed)
+        return run_call(self.call, self.fn)

@@ -55,7 +55,7 @@ class DiskParams(_Tensors):
     beaming: bool = True
 
 
-def default_disk(mass: float = 1.0, device="cpu") -> DiskParams:
+def default_disk(mass: float = 1.0, device="cuda") -> DiskParams:
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     return DiskParams(r_in=f32(3.0 * mass), r_out=f32(12.0 * mass),
                       emission=f32([1.0, 0.85, 0.6]), q=f32(2.0))
@@ -214,7 +214,7 @@ def render_rays(o_world, d_world, bh: kerr.KerrParams, disk: DiskParams,
 
 
 def look_at_rays(eye, target, up, fov_deg, width, height, jitter=None,
-                 device="cpu"):
+                 device="cuda"):
     """A look-at pinhole camera (the Kerr scene has no COLLADA camera):
     flat (n, 3) origins and directions, rows from the top; `jitter` (n, 2)
     in pixels, the pixel centres without it."""

@@ -17,16 +17,28 @@ port of tools/scaling_bench.py). Three modes:
     of 1 over NCCL; the same forward (curved, 1 spp, -l 1, -m 2, --size²
     lanes) unsharded, and sharded as the renderer shards a pass: the
     rank's block of the lanes, draws windowed to it, the radiance
-    gathered. Sharded and unsharded should cost the same; a gap is the
-    padding, the windowed draws and the gather.
+    gathered. Both are compiled, as the JAX tool jits both: CUDA graphs,
+    the block route's gather eager after its graph. Sharded and
+    unsharded should cost the same; a gap is the padding, the windowed
+    draws and the gather.
 
   --breakdown: one JSON line of the current world (the RRT_* group, else
-    a world of 1) on --device: sharded_ms (the block forward),
-    traces_sharded_ms (the forward with every trace sharded,
-    `est_radiance(mesh=)`), device0_ms (unsharded), and the collectives
-    each forward makes (calls and bytes handed to them), which stand for
-    the JAX tool's census of collectives in the compiled program.
-    transfer_ms and sort_ms are null, each with its reason.
+    a world of 1) on --device, under the JAX tool's keys
+    (tools/scaling_bench.py:222-226): flat_sharded_ms (the flat forward
+    with every trace sharded, `est_radiance(mesh=)`), flat_device0_ms
+    (unsharded), curved_nosort_ms (the curved per-trace forward) and the
+    collectives each per-trace forward makes (calls and bytes handed to
+    them, flat_collectives and curved_collectives), which stand for the
+    JAX tool's census of collectives in the compiled program. The port's
+    block route (`sharded` above) is flat_block_sharded_ms, a key of its
+    own. curved_sorted_ms and transfer_extra_ms are null, each with its
+    reason. `compiled` says which forwards ran as CUDA graphs (all on a
+    card over NCCL; none on the CPU, and the per-trace ones run eagerly
+    under gloo, whose collectives a graph cannot hold), `host_launches`
+    the host's launches in one call of each (on a card).
+
+Each timed forward runs twice before it is timed, so that a compiled one
+is timed on its replays.
 
 Every mode runs on the card unless --device cpu is given, and refuses
 without one.
@@ -180,15 +192,21 @@ def _join(device):
     return sh.make_mesh(device)
 
 
-def forwards(size: int, mesh, curved: bool = True):
-    """The forward estimate of a size² frame (1 spp, -l 1, -m 2) three
-    ways: unsharded, sharded as the renderer shards a pass, and with
-    every trace sharded. Returns {name: fn}."""
+def forwards(size: int, mesh, curved: bool = True, graphs=None):
+    """The forward estimate of a size² frame (1 spp, -l 1, -m 2, flat or
+    curved) three ways, each an `integrator.Forward` (compiled on a card
+    unless `graphs` is False): `device0`, unsharded; `sharded`, every
+    trace sharded over `mesh` (`est_radiance(mesh=)`, its gathers and
+    all-reduces inside the graph under NCCL; eager under gloo); and
+    `block_sharded`, the block route a sharded pass takes (this rank's
+    block with windowed draws, compiled, then the blocks' radiance
+    gathered eagerly). Returns {name: (fn, forward)}: fn() runs the
+    forward and returns the frame's (size², 3) radiance."""
     from rrt_tpu_torch.parallel import distributed as pdist
-    from rrt_tpu_torch.parallel.sharding import LaneWindow, shard_bounds
+    from rrt_tpu_torch.parallel.sharding import shard_bounds
     from rrt_tpu_torch.parallel.worker import forward_setup
-    from rrt_tpu_torch.render.integrator import est_radiance
-    from rrt_tpu_torch.render.renderer import make_black_hole, pass_generator
+    from rrt_tpu_torch.render.integrator import Forward
+    from rrt_tpu_torch.render.renderer import make_black_hole, pass_seed
     from rrt_tpu_torch.ops.trace_kernel import build_tables
     from rrt_tpu_torch.types import Rays
     from rrt_tpu_torch.utils.config import BlackHoleConfig
@@ -199,32 +217,35 @@ def forwards(size: int, mesh, curved: bool = True):
     n = size * size
     lo, hi = shard_bounds(n, mesh.rank, mesh.world)
     lo, hi = min(lo, n), min(hi, n)
+    seed = pass_seed(cfg.seed, 0, 0)
+    block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi], min_t=rays.min_t[lo:hi],
+                 max_t=rays.max_t[lo:hi])
+    fw = dict(
+        device0=Forward(scene, bh, rays, cfg, tab, graphs=graphs),
+        sharded=Forward(scene, bh, rays, cfg, tab, mesh=mesh,
+                        graphs=graphs),
+        block_sharded=Forward(scene, bh, block, cfg, tab,
+                              window=(lo, hi, n), graphs=graphs))
+    out = {name: (lambda f=f: f(seed)[0], f) for name, f in fw.items()}
+    out["block_sharded"] = (
+        lambda: pdist.all_gather_lanes(fw["block_sharded"](seed)[0], mesh,
+                                       n), fw["block_sharded"])
+    return out
 
-    def gen():
-        return pass_generator(cfg.seed, 0, 0, mesh.device)
 
-    def unsharded():
-        return est_radiance(scene, bh, rays, cfg, gen(), tab)[0]
-
-    def sharded():
-        block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi],
-                     min_t=rays.min_t[lo:hi], max_t=rays.max_t[lo:hi])
-        L = est_radiance(scene, bh, block, cfg, LaneWindow(gen(), lo, hi, n),
-                         tab)[0]
-        return pdist.all_gather_lanes(L, mesh, n)
-
-    def traces_sharded():
-        return est_radiance(scene, bh, rays, cfg, gen(), tab, mesh=mesh)[0]
-    return dict(unsharded=unsharded, sharded=sharded,
-                traces_sharded=traces_sharded)
+def _sync(device):
+    return (lambda: torch.cuda.synchronize(device)) \
+        if torch.device(device).type == "cuda" else (lambda: None)
 
 
 def timeit(fn, device, reps: int = 5):
-    """(ms per call over reps warm calls, host clock ending in a device
-    sync; the last result)."""
-    sync = (lambda: torch.cuda.synchronize(device)) \
-        if torch.device(device).type == "cuda" else (lambda: None)
-    out = fn()
+    """(ms per call over reps calls after two warm ones, host clock ending
+    in a device sync; the last result). A compiled forward runs eagerly at
+    its first call and is captured at its second, so the timed calls are
+    replays."""
+    sync = _sync(device)
+    for _ in range(2):
+        out = fn()
     sync()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -233,28 +254,40 @@ def timeit(fn, device, reps: int = 5):
     return (time.perf_counter() - t0) / reps * 1e3, out
 
 
+def host_launches(fn, device):
+    """The host's launches (kernels, copies, graph replays) in one call
+    of fn on a card, from `torch.profiler`; None on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    from rrt_tpu_torch.utils.profile import profile_call
+    return profile_call(fn, device=device).host_launches
+
+
 def card_gap(size: int) -> dict:
     """The --card measurement: unsharded, sharded, sharded, unsharded
-    forwards of size² lanes on a world of 1 over NCCL (each 5 warm calls);
-    returns their ms and whether the results are equal. Leaves the group
-    it joined."""
+    forwards of size² lanes on a world of 1 over NCCL (each 5 calls after
+    two warm ones), both compiled (`forwards`: the block route's graph,
+    then its gather); returns their ms and whether the results are
+    equal. Leaves the group it joined."""
     from rrt_tpu_torch.parallel import distributed as pdist
     from rrt_tpu_torch.utils.card import card_line
     mesh = _join("cuda")
     try:
         fns = forwards(size, mesh)
+        pick = dict(unsharded="device0", sharded="block_sharded")
         res = {}
         for name in ("unsharded", "sharded", "sharded", "unsharded"):
-            ms, out = timeit(fns[name], mesh.device)
-            res.setdefault(name, []).append((ms, out))
+            ms, out = timeit(fns[pick[name]][0], mesh.device)
+            res.setdefault(name, []).append((ms, out.clone()))
         equal = torch.equal(res["sharded"][-1][1], res["unsharded"][-1][1])
+        compiled = {name: fns[k][1].graphs for name, k in pick.items()}
     finally:
         pdist.shutdown()
     return {"lanes": size * size, "world": mesh.world,
             "backend": mesh.backend,
             "unsharded_ms": [r[0] for r in res["unsharded"]],
             "sharded_ms": [r[0] for r in res["sharded"]], "equal": equal,
-            "card": card_line()}
+            "compiled": compiled, "card": card_line()}
 
 
 def main_card(args):
@@ -264,31 +297,156 @@ def main_card(args):
         ms = gap[f"{name}_ms"]
         print(f"{name}: {n} lanes in {min(ms):.3f} ms ({n / min(ms) * 1e3:,.0f}"
               f" lanes/s; runs {', '.join(f'{m:.3f}' for m in ms)} ms) on "
-              f"{gap['world']} device(s) over {gap['backend']}")
+              f"{gap['world']} device(s) over {gap['backend']}, compiled "
+              f"{gap['compiled'][name]}")
     print(json.dumps({"card_gap": gap}))
     if not gap["equal"]:
         raise SystemExit("the sharded forward differs from the unsharded")
 
 
+# --breakdown's keys: the JAX tool's (tools/scaling_bench.py:222-226),
+# with the port's block route under a key of its own
+BREAKDOWN = (("flat", "sharded", "flat_sharded"),
+             ("flat", "device0", "flat_device0"),
+             ("flat", "block_sharded", "flat_block_sharded"),
+             ("curved", "sharded", "curved_nosort"))
+
+
+def breakdown(size: int, mesh) -> dict:
+    """--breakdown's row for this rank: each forward of `BREAKDOWN` timed
+    (`timeit`), the collectives one call makes (calls and bytes handed to
+    them, which stand for the JAX tool's census of collectives in the
+    compiled program), whether it is compiled and the host's launches in
+    one call."""
+    from rrt_tpu_torch.parallel import distributed as pdist
+    out = {"world": mesh.world, "backend": mesh.backend,
+           "device": str(mesh.device), "lanes": size * size, "compiled": {},
+           "host_launches": {}}
+    for kind in ("flat", "curved"):
+        fns = forwards(size, mesh, curved=kind == "curved")
+        for k, name, key in BREAKDOWN:
+            if k != kind:
+                continue
+            fn, fwd = fns[name]
+            out[f"{key}_ms"], _ = timeit(fn, mesh.device)
+            pdist.COLLECTIVES.update(calls=0, bytes=0)
+            fn()
+            collectives = dict(pdist.COLLECTIVES)
+            if name == "sharded":
+                out[f"{kind}_collectives"] = collectives
+            elif name == "block_sharded":
+                out[f"{key}_collectives"] = collectives
+            out["compiled"][key] = fwd.graphs
+            out["host_launches"][key] = host_launches(fn, mesh.device)
+        del fns
+    out["curved_sorted_ms"] = None
+    out["curved_sorted_reason"] = ("the port has no lane sort: the kernel "
+                                   "traces the lanes in their order")
+    out["transfer_extra_ms"] = None
+    out["transfer_extra_reason"] = ("the trace tables are built once per "
+                                    "render and stay on the device; no "
+                                    "call re-ships them")
+    return out
+
+
+def forward_case(mesh, size: int, curved: bool, reps: int = 5) -> dict:
+    """The per-trace sharded forward (`est_radiance(mesh=)`, 1 spp, -l 1,
+    -m 2) of a size² frame, compiled (one graph with its collectives
+    inside on a card over NCCL), against the same forward run eagerly and
+    against the compiled unsharded forward: equal bit for bit in radiance
+    and trace counters at every call, the first (eager) and second
+    (captured) calls included; the kernel's own count of its runs equal
+    to the trace calls at every call, and no Python launch in a replay;
+    the collectives of a replay equal to the eager call's (the kernel's
+    count on a card only: the CPU's plain traversal keeps none). Then walls in
+    turns (`reps` each, host clock ending in a device sync), the host's
+    launches in one call of each, the capture's seconds and, on a card,
+    the compiled forward's graph pool. Returns a row of plain values."""
+    import gc
+    from rrt_tpu_torch.ops import trace_kernel as tk
+    from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.render.renderer import pass_seed
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync = _sync(dev)
+    fs = dict(graph=forwards(size, mesh, curved)["sharded"][1],
+              eager=forwards(size, mesh, curved, graphs=False)["sharded"][1],
+              unsharded=forwards(size, mesh, curved)["device0"][1])
+    seed = pass_seed(0, 0, 0)
+    bad = []
+
+    def run(label):
+        tk.reset_counts()
+        pdist.COLLECTIVES.update(calls=0, bytes=0)
+        replay = fs[label].call is not None and fs[label].call.calls > 0
+        sync()
+        t0 = time.perf_counter()
+        L, work = fs[label](seed)
+        sync()
+        wall = time.perf_counter() - t0
+        if work.calls == 0 or cuda and (
+                tk.kernel_runs() != work.calls or replay and tk.LAUNCHES):
+            bad.append(f"{label}: {tk.kernel_runs()} kernel runs and "
+                       f"{tk.LAUNCHES} eager launches for {work.calls} trace "
+                       f"calls")
+        return wall, L.clone(), work.tests.clone(), dict(pdist.COLLECTIVES)
+
+    _, L0, t0_, coll = run("eager")
+    equal = {"eager": [], "unsharded": []}
+
+    def check(label, got):
+        same = torch.equal(got[1], L0) and torch.equal(got[2], t0_)
+        equal["unsharded" if label == "unsharded" else "eager"].append(same)
+        if label == "graph" and got[3] != coll:
+            bad.append(f"a compiled call made {got[3]} collectives, the "
+                       f"eager one {coll}")
+    first = {}
+    for label in ("graph", "unsharded"):
+        for i in range(2):            # the eager warm-up, then the capture
+            got = run(label)
+            first[f"{label}_{i}"] = got[0]
+            check(label, got)
+    walls = {k: [] for k in fs}
+    order = ("graph", "eager", "unsharded")
+    for label in (order + order[::-1]) * ((reps + 1) // 2):
+        if len(walls[label]) < reps:
+            got = run(label)
+            walls[label].append(got[0])
+            check(label, got)
+    launches = {k: host_launches(lambda f=f: f(seed), dev)
+                for k, f in fs.items()}
+    call = fs["graph"].call
+    row = dict(size=size, lanes=size * size, curved=curved,
+               world=mesh.world, backend=mesh.backend,
+               compiled=fs["graph"].graphs,
+               equal_eager=all(equal["eager"]),
+               equal_unsharded=all(equal["unsharded"]),
+               calls=len(equal["eager"]) + len(equal["unsharded"]) + 1,
+               walls=walls, first_calls=first, host_launches=launches,
+               collectives=coll,
+               graph_collectives=dict(call.collectives) if call else None,
+               capture_s=call.capture_seconds if call else None,
+               replays=call.replays if call else 0, faults=bad)
+    if cuda:
+        mib = 2 ** 20
+        del fs["eager"], fs["unsharded"], call
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved(dev) / mib
+        del fs
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["pool_mib"] = pool - torch.cuda.memory_reserved(dev) / mib
+    return row
+
+
 def main_breakdown(args):
     from rrt_tpu_torch.parallel import distributed as pdist
+    from rrt_tpu_torch.utils.card import card_line
     mesh = _join(args.device)
-    fns = forwards(args.size, mesh)
-    out = {"world": mesh.world, "backend": mesh.backend,
-           "device": str(mesh.device), "lanes": args.size * args.size}
-    for name in ("sharded", "traces_sharded", "unsharded"):
-        ms, _ = timeit(fns[name], mesh.device)
-        pdist.COLLECTIVES.update(calls=0, bytes=0)
-        fns[name]()
-        key = "device0" if name == "unsharded" else name
-        out[f"{key}_ms"] = ms
-        out[f"{key}_collectives"] = dict(pdist.COLLECTIVES)
-    out["transfer_ms"] = None
-    out["transfer_reason"] = ("the trace tables are built once per render "
-                              "and stay on the device; no call re-ships "
-                              "them")
-    out["sort_ms"] = None
-    out["sort_reason"] = "the port has no lane sort"
+    out = breakdown(args.size, mesh)
+    if mesh.device.type == "cuda":
+        out["card"] = card_line()
     print(json.dumps(out))
     pdist.shutdown()
 

@@ -4,13 +4,22 @@ gradient step or a block of march steps; see
 `render/renderer.Renderer._pass_fn`, `render/diff.LossAndGrad` and
 `render/kerr_scene.DiskMarch`).
 
-A sharded program is two calls around its one collective, which runs
-eagerly between their replays on the static buffers they share: the
-renderer's sharded pass (`PassRunner`: the rank half, the gather, the
-accumulate half), the sharded gradient step (`LossAndGrad(mesh=)`: half
-A, the all-reduce, half B) and the sharded Kerr batch (its block's march
-in `DiskMarch` blocks, then the gather). No collective is captured, so
-any backend serves them, gloo's host copies included.
+A sharded program takes one of two forms. Most are two calls around
+their one collective, which runs eagerly between their replays on the
+static buffers they share: the renderer's sharded pass (`PassRunner`:
+the rank half, the gather, the accumulate half), the sharded gradient
+step (`LossAndGrad(mesh=)`: half A, the all-reduce, half B) and the
+sharded Kerr batch (its block's march in `DiskMarch` blocks, then the
+gather). No collective is captured there, so any backend serves them,
+gloo's host copies included. The per-trace forward
+(`render/integrator.Forward` with a mesh, the counterpart of the JAX
+package's jitted `est_radiance(mesh=)`) is one call with a gather and
+an all-reduce at every trace inside it: under NCCL a capture records
+them as kernels, and every rank captures and replays the same calls in
+the same order. Its first call, eager, makes the group's first
+collective, so that NCCL's communicator exists before the capture. gloo
+runs its collectives on the host, and a capture that reaches one raises
+(`parallel.distributed._collective`).
 
 While a process group is alive a capture runs in
 `capture_error_mode="thread_local"` (`capture_mode`), else in the
@@ -51,7 +60,12 @@ A replay runs the trace kernel without its Python wrapper, so
 and launches nothing); the kernel's own count on the device,
 `ops.trace_kernel.kernel_runs()`, sees every run, replays included.
 `fn`'s return value (the renderer's trace calls) is the one of the
-capture, which every replay repeats.
+capture, which every replay repeats. In the same way the collectives'
+Python count `parallel.distributed.COLLECTIVES` moves only while `fn`'s
+Python runs: a call records the calls and bytes its capture handed to
+collectives (`collectives`), takes them back out of the count (a capture
+runs none), and adds them at every replay, so that the count is that of
+the collectives the device ran.
 """
 from __future__ import annotations
 
@@ -61,6 +75,8 @@ import traceback
 from typing import Callable, Sequence
 
 import torch
+
+from rrt_tpu_torch.parallel.distributed import COLLECTIVES
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -106,6 +122,8 @@ class CapturedCall:
         self.calls = 0
         self.capture_seconds = 0.0
         self.replays = 0
+        # calls and bytes of the collectives inside the graph
+        self.collectives = {"calls": 0, "bytes": 0}
 
     def _warm_up(self, *args):
         side = torch.cuda.Stream(self.device)
@@ -131,15 +149,22 @@ class CapturedCall:
             return self._warm_up(*args)
         if self.graph is None:
             t0 = time.perf_counter()
+            before = dict(COLLECTIVES)
             try:
                 self.graph = self._capture(*args)
             except Exception as exc:   # noqa: BLE001 — re-raised with context
                 raise RuntimeError(
                     f"capturing {self.name} as a CUDA graph failed at "
                     f"{_where(exc)}: {type(exc).__name__}: {exc}") from exc
+            finally:
+                for k, v in before.items():
+                    self.collectives[k] = COLLECTIVES[k] - v
+                    COLLECTIVES[k] = v
             self.capture_seconds = time.perf_counter() - t0
         self.graph.replay()
         self.replays += 1
+        for k, v in self.collectives.items():
+            COLLECTIVES[k] += v
         return self.result
 
 

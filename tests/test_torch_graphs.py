@@ -7,7 +7,7 @@ The CPU has no CUDA graphs, so a stand-in takes the graph's place: the
 warm-up runs the function, the "capture" runs it as a capture records it
 (its Python runs, launches nothing) and puts every buffer and the
 registered generators back, since a capture changes none, and a replay runs it again on the same arguments
-without the Python launcher's count. The plain traversal stands in for the
+without the Python launcher's count or the collectives' count. The plain traversal stands in for the
 kernel: an eager call adds one to `LAUNCHES`, and every run outside the
 capture, replays included, one to the stand-in's `kernel_runs`. What the stand-in
 checks is what a replay depends on: that a pass reads everything that
@@ -27,6 +27,7 @@ from rrt_tpu.scene.build import load_scene as jax_load_scene
 from rrt_tpu_torch import bench
 from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
 from rrt_tpu_torch.ops import trace_kernel as tk
+from rrt_tpu_torch.parallel.distributed import COLLECTIVES
 from rrt_tpu_torch.parallel.sharding import batch_sharding, make_mesh
 from rrt_tpu_torch.render import kerr_scene as K
 from rrt_tpu_torch.render.renderer import (PassRunner, Renderer,
@@ -46,11 +47,16 @@ class StandInGraph:
         self.fn, self.args, self.mode = fn, args, mode
 
     def replay(self):
+        """fn run again, as the graph would run it: without the Python
+        launcher's count, and without moving the collectives' Python count
+        (`CapturedCall` adds a graph's collectives at every replay)."""
         self.mode.update(replaying=True)
+        counted = dict(COLLECTIVES)
         try:
             self.fn(*self.args)
         finally:
             self.mode.update(replaying=False)
+            COLLECTIVES.update(counted)
 
 
 def _buffers(args):

@@ -146,7 +146,7 @@ def test_render_rays_matches_jax():
     disk = _disk(jdisk)
     for field in ("r_in", "r_out", "emission", "q"):
         np.testing.assert_array_equal(getattr(disk, field).numpy(), getattr(
-            K.default_disk(1.0), field).numpy())
+            K.default_disk(1.0, device="cpu"), field).numpy())
     jimg = JK.render_image(24, 24, jbh, jdisk, n_steps=300)
     img = K.render_image(24, 24, bh, disk, n_steps=300, device="cpu")
     jc, tc = _classes(jimg), _classes(img)
@@ -156,7 +156,7 @@ def test_render_rays_matches_jax():
     np.testing.assert_allclose(img[agree], jimg[agree], rtol=1e-3, atol=1e-6)
     # the classes read from the radiance are trace_disk's masks
     o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
-                          30.0, 24, 24)
+                          30.0, 24, 24, device="cpu")
     st, _, hit_disk = K.trace_disk(o, d, bh, disk, 300)
     np.testing.assert_array_equal(hit_disk.numpy().reshape(24, 24), tc == 1)
     np.testing.assert_array_equal(
@@ -223,3 +223,12 @@ def test_kerr_cli_refuses_sharded_and_missing_cuda(tmp_path, monkeypatch,
         kerr_cli.main(["-f", out, "-r", "8", "8"])
     assert e.value.code == 2 and "--device cpu" in capsys.readouterr().err
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("fn", [K.default_disk, K.look_at_rays],
+                         ids=["default_disk", "look_at_rays"])
+def test_scene_constructors_default_to_the_card(fn):
+    """The Kerr scene's public constructors put their tensors on the card
+    unless the caller asks for the CPU, as the port's entry points do."""
+    import inspect
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

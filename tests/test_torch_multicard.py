@@ -16,7 +16,13 @@ each running this file as a script.
     the eager sharded render and to the unsharded graph render on the
     rank's own card, bit for bit, in every one of three renders, with the
     kernel's runs equal to the trace calls and no Python launch once the
-    passes replay.
+    passes replay;
+  * the per-trace sharded forward `est_radiance(mesh=)` of a 64×64 frame,
+    flat and curved, compiled as one graph with the two ranks' gathers and
+    all-reduces inside (`tools/scaling_bench.forward_case`): equal bit for
+    bit to itself eager and to the unsharded forward on the rank's own
+    card at every call, radiance and counters, with a replay's
+    collectives equal to the eager forward's.
 
 Every test needs two CUDA cards and skips inside the test without them.
 The file imports no JAX, so that a machine with the cards and without
@@ -133,6 +139,29 @@ def _render(mesh, out):
              lit=float(want[0].sum()))
 
 
+def _forward(mesh, out):
+    """The per-trace forward case, flat and curved, as JSON rows."""
+    import json
+    from rrt_tpu_torch.tools.scaling_bench import forward_case
+    rows = [json.dumps(forward_case(mesh, 64, curved, reps=2))
+            for curved in (False, True)]
+    np.savez(out, rows=rows)
+
+
+@pytest.mark.cuda
+def test_two_rank_per_trace_forward_equals_eager_and_unsharded(two_cards,
+                                                               tmp_path):
+    import json
+    for r in _spawn("forward", tmp_path):
+        for row in map(json.loads, r["rows"]):
+            assert row["compiled"] and row["world"] == WORLD
+            assert row["equal_eager"] and row["equal_unsharded"]
+            # the capture's replay, two timed and one profiled
+            assert not row["faults"] and row["replays"] == 4
+            assert row["graph_collectives"] == row["collectives"]
+            assert row["host_launches"]["graph"] < 10
+
+
 @pytest.mark.cuda
 def test_capture_right_after_two_rank_collectives_over_nccl(two_cards,
                                                             tmp_path):
@@ -161,7 +190,8 @@ if __name__ == "__main__":
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             world_size=WORLD, rank=int(rank))
     try:
-        {"captures": _captures, "render": _render}[case](
-            sh.make_mesh("cuda"), out)
+        cases = {"captures": _captures, "render": _render,
+                 "forward": _forward}
+        cases[case](sh.make_mesh("cuda"), out)
     finally:
         dist.destroy_process_group()

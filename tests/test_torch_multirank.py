@@ -15,6 +15,12 @@ single-process runs (`worker.reference`):
     sum of the ranks' shares computed in this process (`worker.off_bound`:
     the all-reduce sums three or four shares in an order it does not
     state);
+  * the per-trace sharded forward (`est_radiance(mesh=)`) of a 5×5
+    frame (25 lanes: blocks of 9, 9 and 7, or 7, 7, 7 and 4), flat and
+    curved, equal in every rank to itself eager and to the unsharded
+    forward bit for bit, radiance and counters (the counters are
+    integers, exact in any order of the sum), with a gather and an
+    all-reduce at each of its four traces;
   * the four-rank step against the JAX package's sharded
     `value_and_grad` on a 4-device CPU mesh (`jax_parity` of
     tests/test_torch_sharded_graphs.py).
@@ -33,7 +39,7 @@ from rrt_tpu_torch.tools.scaling_bench import spawn_workers
 from test_torch_sharded_graphs import jax_parity
 
 W, H = 5, 11
-CHECKS = ("render", "step")
+CHECKS = ("render", "step", "mesh")
 LEAVES = ("loss",) + worker._LEAVES
 WORLDS = (3, 4)
 
@@ -115,6 +121,18 @@ def test_sharded_step_within_the_order_free_bound(ranks):
             assert worker.off_bound(r[f"step_{leaf}"], shares) <= 1.0, leaf
     assert np.abs(ref["step_bh_radius"]).max() > 0
     assert np.abs(ref["step_reflectance"]).max() > 0
+
+
+def test_per_trace_forward_equals_eager_and_unsharded(ranks):
+    import json
+    world, res, _, _ = ranks
+    for rank, r in enumerate(res):
+        for kind in ("flat", "curved"):
+            row = json.loads(str(r[f"mesh_{kind}"]))
+            assert row["world"] == world and row["lanes"] == W * W
+            assert row["equal_eager"] and row["equal_unsharded"], (rank, kind)
+            assert not row["faults"] and not row["compiled"]
+            assert row["collectives"]["calls"] == 8
 
 
 def test_four_rank_step_matches_jax_sharded_value_and_grad(tmp_path):
