@@ -55,6 +55,18 @@ def _declare_r5prim(lib):
     lib.rrt_r5prim_error_string.restype = ctypes.c_char_p
 
 
+def _declare_threefry(lib):
+    ll = ctypes.c_longlong
+    lib.rrt_threefry_uniform.argtypes = [_vp] + [ll] * 6 + [_i, _vp, _vp,
+                                                             _i, _vp]
+    lib.rrt_threefry_uniform.restype = _i
+    lib.rrt_threefry_keys.argtypes = [_vp, _i, _i, _vp, ctypes.c_uint, _vp,
+                                      _vp, _i, _vp]
+    lib.rrt_threefry_keys.restype = _i
+    lib.rrt_threefry_error_string.argtypes = [_i]
+    lib.rrt_threefry_error_string.restype = ctypes.c_char_p
+
+
 @dataclasses.dataclass(frozen=True)
 class Family:
     """One library: its sources, and the C signatures it exports."""
@@ -68,6 +80,8 @@ FAMILIES: Dict[str, Family] = {
     "trace": Family("trace", (_CSRC / "trace_kernel.cu",), _declare_trace),
     "probe": Family("probe", (_CSRC / "probe.cu",), _declare_probe),
     "r5prim": Family("r5prim", (_CSRC / "r5prim.cu",), _declare_r5prim),
+    "threefry": Family("threefry", (_CSRC / "threefry.cu",),
+                       _declare_threefry),
 }
 
 # per family, what its last build in this process printed, how long it

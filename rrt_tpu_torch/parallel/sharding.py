@@ -8,9 +8,10 @@ takes a contiguous block of each batch's lanes, the block that JAX's
 `P("batch")` gives device `rank`. Scene tables are replicated; only
 results, counters and gradients cross ranks (`parallel/distributed.py`).
 
-`LaneWindow` keeps a sharded render's random numbers equal to the
-single-process render's: a rank draws the global shape from the pass's
-generator and keeps its window of the lane axis.
+A sharded render's random numbers equal the single-process render's: a
+rank computes its block of each draw of the whole batch, whose threefry
+counters are the elements' flat indices in the whole draw
+(`utils.prng.uniform(window=)`), as JAX's partitionable threefry does.
 """
 from __future__ import annotations
 
@@ -45,44 +46,6 @@ class LaneSharding:
     per rank in rank order (JAX's `NamedSharding(mesh, P("batch"))`)."""
 
     mesh: LaneMesh
-
-
-@dataclasses.dataclass(frozen=True)
-class LaneWindow:
-    """The lanes [lo, hi) of a batch of `n_global` lanes, and the batch's
-    generator. A draw through `lane_rand` draws the global shape, whose
-    axis `axis` holds the lanes, and keeps the window, so that the blocks
-    of all ranks put together equal the single-process draw bit for bit;
-    it costs each rank the whole batch's draws."""
-
-    gen: torch.Generator
-    lo: int
-    hi: int
-    n_global: int
-    axis: int = 0
-
-
-def on_axis(gen, axis: int):
-    """`gen` for a draw whose lanes lie on `axis` (a plain generator is
-    returned as it is)."""
-    if isinstance(gen, LaneWindow):
-        return dataclasses.replace(gen, axis=axis)
-    return gen
-
-
-def lane_rand(gen, shape, device, dtype=torch.float32):
-    """Uniforms of `shape` from a `torch.Generator`, or, from a
-    `LaneWindow`, the window's part of the draw whose lane axis holds all
-    n_global lanes (that axis of `shape` must be the window's width)."""
-    if not isinstance(gen, LaneWindow):
-        return torch.rand(shape, generator=gen, dtype=dtype, device=device)
-    shape, axis = list(shape), gen.axis
-    if shape[axis] != gen.hi - gen.lo:
-        raise ValueError(f"lane axis {axis} of {tuple(shape)} is not the "
-                         f"window [{gen.lo}, {gen.hi})")
-    shape[axis] = gen.n_global
-    x = torch.rand(shape, generator=gen.gen, dtype=dtype, device=device)
-    return x.narrow(axis, gen.lo, gen.hi - gen.lo).contiguous()
 
 
 def _one_device(d) -> torch.device:

@@ -7,15 +7,16 @@
 SIZE is W or WxH (default 16). Each rank joins a process group of NPROC
 ranks at 127.0.0.1:PORT, takes its contiguous share of a frame's centred
 camera rays through `make_global_batch`, and estimates their radiance as
-its block of the whole batch (`LaneWindow` draws; flat spacetime, 1 spp,
--l 1, -m 2, as the JAX worker), twice to warm up and `FWD_REPS` times
-timed (`dts`, their median `dt`); on a card the forward is a CUDA graph
-(`render/integrator.Forward`: the first call eager, the second captured,
-later calls replayed), as the JAX worker jits it, so that `dt` is the
-card's time and not the host's launches. It then estimates the whole frame in
-this process alone and holds its rows to rtol 2e-5, atol 2e-6, as the
-JAX worker does (the windowed draws make them equal), and writes OUT.npz
-with `local, lo, hi, dt, dts, nproc, ndev`, the max error and
+its block of the whole batch (its block of the draws of key(0), as the
+JAX worker's jitted forward draws; flat spacetime, 1 spp, -l 1, -m 2),
+twice to warm up and `FWD_REPS` times timed (`dts`, their median `dt`);
+on a card the forward is a CUDA graph (`render/integrator.Forward`: the
+first call eager, the second captured, later calls replayed), as the JAX
+worker jits it, so that `dt` is the card's time and not the host's
+launches. It then estimates the whole frame in this process alone and
+holds its rows to rtol 2e-5, atol 2e-6, as the JAX worker does (the
+block's draws make them equal), and writes OUT.npz with `local, lo, hi,
+dt, dts, nproc, ndev`, the max error and
 `build_cached` (whether the trace kernel's library was built before this
 process started).
 
@@ -27,7 +28,7 @@ to hold against a single-process run (`reference`):
   stop   — the same render with `stop_after=1` on the last rank only;
   grad   — `loss_and_grad(mesh=)` of that frame's camera rays;
   step   — `LossAndGrad(mesh=)` of the same problem called three times
-           with moved params and a new seed each (on a card the first
+           with moved params and key(i) at call i (on a card the first
            call eager, the second captured and replayed, the third
            replayed; on the CPU all eager): each call against
            `loss_and_grad(mesh=)` bit for bit, its trace calls and the
@@ -74,6 +75,8 @@ import time
 
 import numpy as np
 import torch
+
+from rrt_tpu_torch.utils import prng
 
 CHECKS = ("render", "stop", "grad", "step", "kerr", "cli", "mesh")
 # the differentiable leaves, in `diff.SceneParams` order
@@ -144,7 +147,7 @@ def step_params(params, i: int):
                           reflectance=params.reflectance * (1 - 0.05 * i))
 
 
-# the step check's calls; call i draws from a generator seeded with i
+# the step check's calls; call i draws from key(i)
 STEP_CALLS = 3
 # the forward's timed runs (after one warm-up); `dt` is their median
 FWD_REPS = 5
@@ -164,8 +167,7 @@ def step_shares(problem, world: int, call: int = STEP_CALLS - 1):
     for rank in range(world):
         mesh = LaneMesh(None, rank, world, dev, None)
         loss, g = diff.loss_and_grad(p, scene, bh, rays, target, cfg,
-                                     torch.Generator(dev).manual_seed(call),
-                                     mesh=mesh)
+                                     prng.key(call, dev), mesh=mesh)
         out.append([v.cpu().numpy() for v in (loss, *g.leaves())])
     return out
 
@@ -227,7 +229,7 @@ def reference(checks, w: int, h: int, device, tmp_png: str,
     if "grad" in checks:
         bh, params, rays, target = grad_setup(scene, cam, cfg, device)
         loss, g = diff.loss_and_grad(params, scene, bh, rays, target, cfg,
-                                     torch.Generator(device).manual_seed(0))
+                                     prng.key(0, device))
         out["grad_loss"] = loss.cpu().numpy()
         for f, v in zip(_LEAVES, g.leaves()):
             out[f"grad_{f}"] = v.cpu().numpy()
@@ -277,15 +279,14 @@ def run_checks(checks, w: int, h: int, mesh, out_png: str) -> dict:
     if "grad" in checks:
         bh, params, rays, target = grad_setup(scene, cam, cfg, dev)
         loss, g = diff.loss_and_grad(params, scene, bh, rays, target, cfg,
-                                     torch.Generator(dev).manual_seed(0),
-                                     mesh=mesh)
+                                     prng.key(0, dev), mesh=mesh)
         out["grad_loss"] = loss.cpu().numpy()
         for f, v in zip(_LEAVES, g.leaves()):
             out[f"grad_{f}"] = v.cpu().numpy()
     if "step" in checks:
         bh, params, rays, target = grad_setup(scene, cam, cfg, dev)
         step = diff.LossAndGrad(scene, bh, cfg, rays, target, mesh=mesh)
-        gen = lambda i: torch.Generator(dev).manual_seed(i)
+        gen = lambda i: prng.key(i, dev)
         equal, calls, runs = [], [], []
         for i in range(STEP_CALLS):
             p = step_params(params, i)
@@ -394,8 +395,7 @@ def full_reference(device, worlds) -> dict:
     params, scene, bh, rays, target, cfg = problem
     i = STEP_CALLS - 1
     loss, g = diff.loss_and_grad(step_params(params, i), scene, bh, rays,
-                                 target, cfg,
-                                 torch.Generator(device).manual_seed(i))
+                                 target, cfg, prng.key(i, device))
     out["unsharded_step"] = [v.cpu().numpy() for v in (loss, *g.leaves())]
     for world in worlds:
         out[f"shares_{world}"] = step_shares(problem, world)
@@ -488,7 +488,7 @@ def run_card_checks(checks, mesh, w: int, h: int) -> dict:
     if "full_step" in checks:
         _, _, _, (params, scene, bh, rays, target, cfg) = full_setup(dev)
         step = diff.LossAndGrad(scene, bh, cfg, rays, target, mesh=mesh)
-        gen = lambda i: torch.Generator(dev).manual_seed(i)
+        gen = lambda i: prng.key(i, dev)
         equal, calls, runs, launches, walls = [], [], [], [], []
         for i in range(STEP_CALLS):
             p = step_params(params, i)
@@ -558,7 +558,6 @@ def main(argv=None):
 
     from rrt_tpu_torch.parallel import distributed as pdist
     from rrt_tpu_torch.render.integrator import Forward, est_radiance
-    from rrt_tpu_torch.render.renderer import pass_generator, pass_seed
     from rrt_tpu_torch.types import Rays
 
     pdist.initialize(coordinator_address=f"127.0.0.1:{args.port}",
@@ -583,8 +582,10 @@ def main(argv=None):
     # first call eager, its second captured, later calls replayed
     forward = Forward(scene, bh, rays, cfg, tab, window=(lo, hi, n))
 
+    key = prng.key(0, mesh.device)
+
     def fwd():
-        return forward(pass_seed(cfg.seed, 0, 0))[0]
+        return forward(key)[0]
 
     for _ in range(2):
         fwd()
@@ -600,8 +601,7 @@ def main(argv=None):
     dt = float(np.median(dts))
     local_rows = local_rows.cpu().numpy()
     # the whole frame in this process alone: its rows [lo, hi)
-    whole = est_radiance(scene, bh, rays_full, cfg,
-                         pass_generator(cfg.seed, 0, 0, mesh.device),
+    whole = est_radiance(scene, bh, rays_full, cfg, key,
                          tab)[0].cpu().numpy()
     err = float(np.abs(local_rows - whole[lo:hi]).max()) if hi > lo else 0.0
     np.testing.assert_allclose(local_rows, whole[lo:hi], rtol=2e-5,

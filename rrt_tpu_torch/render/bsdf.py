@@ -9,8 +9,10 @@ Smith Λ and conductor Fresnel of the microfacet model, the refraction stub
 that scatters nothing, and glass feeding the refracted cosine into
 Schlick (bsdf.cpp:33-171).
 
-Sampling takes its uniforms as tensors (`xi`, `xim`, `xic`), so that a
-caller, or a test, decides where the random numbers come from.
+Sampling takes its uniforms as tensors (`xi`, `xim`, `xic`): the
+integrator draws them from the three keys of `split(key, 3)`, as the JAX
+package's `sample` does (rrt_tpu/render/bsdf.py:184-227), and tests hand
+both packages the same ones.
 """
 from __future__ import annotations
 

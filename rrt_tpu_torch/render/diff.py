@@ -22,13 +22,14 @@ later call. It builds the traversal's geometry tables once
 `tables`); every evaluation, eager or compiled, writes the hole's row
 from the leaves on the device (`trace_kernel.with_hole`).
 
-Random numbers come from the caller's `torch.Generator`. An objective
-evaluated again with "the same key" takes a fresh generator with the same
-seed, so that it is deterministic.
+Random numbers come from the caller's threefry key (`utils.prng`), as
+the JAX package's functions take a `jax.random` key
+(rrt_tpu/render/diff.py:96-122): the same key evaluates the same
+objective, and it draws the JAX package's uniforms.
 
 With `mesh=` (a `parallel.sharding.LaneMesh`) every rank holds the whole
-ray batch and target and renders its block of the lanes with the batch's
-draws windowed to them (`LaneWindow`); its share of the loss is
+ray batch and target and renders its block of the lanes with its block
+of the batch's draws (`prng.uniform(window=)`); its share of the loss is
 Σ (img − target)² over its lanes / the batch's elements. Each rank takes
 the gradient of its share by itself, and the loss and every gradient
 leaf are then summed over the ranks by one all-reduce of one flat buffer:
@@ -49,7 +50,7 @@ import torch
 from rrt_tpu_torch.ops.trace_kernel import (TraceTables, build_tables,
                                             with_hole)
 from rrt_tpu_torch.parallel import distributed as pdist
-from rrt_tpu_torch.parallel.sharding import LaneWindow, shard_bounds
+from rrt_tpu_torch.parallel.sharding import shard_bounds
 from rrt_tpu_torch.physics.schwarzschild import n_segments
 from rrt_tpu_torch.render.integrator import est_radiance
 from rrt_tpu_torch.types import BlackHoleParams, Rays, SceneData, _Tensors
@@ -133,27 +134,28 @@ def bind_params(scene: SceneData, bh: Optional[BlackHoleParams],
 
 def render_radiance(params: SceneParams, scene: SceneData,
                     bh: Optional[BlackHoleParams], rays: Rays,
-                    cfg: RenderConfig, gen: torch.Generator,
+                    cfg: RenderConfig, key: torch.Tensor,
                     with_work: bool = False,
-                    tables: Optional[TraceTables] = None):
-    """Differentiable radiance (..., 3) of a ray batch; with `with_work`
-    also the integrator's `TraceWork` (the kernel's counters and trace
-    calls). The chord count is the config's nominal Δθ's, so that a Δθ
-    under optimisation does not change it. `tables` are the scene's
-    geometry tables, `build_tables(scene, None)`; they are made here when
-    not given."""
+                    tables: Optional[TraceTables] = None, lanes=None):
+    """Differentiable radiance (..., 3) of a ray batch under the threefry
+    `key`; with `with_work` also the integrator's `TraceWork` (the
+    kernel's counters and trace calls). The chord count is the config's
+    nominal Δθ's, so that a Δθ under optimisation does not change it.
+    `tables` are the scene's geometry tables, `build_tables(scene,
+    None)`; they are made here when not given. `lanes` = (lo, hi, n):
+    the rays are those lanes of a batch of n (`est_radiance`'s)."""
     cfg = cfg.replace(differentiable=True)
     geometry = build_tables(scene, None) if tables is None else tables
     scene2, bh2, tab = bind_params(scene, bh, params, geometry,
                                    n_segments(cfg.black_hole.delta_theta))
-    L, work = est_radiance(scene2, bh2, rays, cfg, gen, tab)
+    L, work = est_radiance(scene2, bh2, rays, cfg, key, tab, lanes=lanes)
     return (L, work) if with_work else L
 
 
 def image_loss(params: SceneParams, scene: SceneData,
                bh: Optional[BlackHoleParams], rays: Rays,
                target: torch.Tensor, cfg: RenderConfig,
-               gen: torch.Generator, mesh=None,
+               key: torch.Tensor, mesh=None,
                tables: Optional[TraceTables] = None,
                with_work: bool = False):
     """Mean L2 loss between the rendered radiance and a target batch; with
@@ -161,7 +163,7 @@ def image_loss(params: SceneParams, scene: SceneData,
     `with_work` also the integrator's `TraceWork`; `tables` as
     `render_radiance`'s."""
     if mesh is None:
-        img, work = render_radiance(params, scene, bh, rays, cfg, gen, True,
+        img, work = render_radiance(params, scene, bh, rays, cfg, key, True,
                                     tables)
         loss = torch.mean((img - target) ** 2)
         return (loss, work) if with_work else loss
@@ -170,26 +172,26 @@ def image_loss(params: SceneParams, scene: SceneData,
     lo, hi = min(lo, n), min(hi, n)
     block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi], min_t=rays.min_t[lo:hi],
                  max_t=rays.max_t[lo:hi])
-    img, work = render_radiance(params, scene, bh, block, cfg,
-                                LaneWindow(gen, lo, hi, n), True, tables)
+    img, work = render_radiance(params, scene, bh, block, cfg, key, True,
+                                tables, (lo, hi, n))
     loss = torch.sum((img - target[lo:hi]) ** 2) / target.numel()
     return (loss, work) if with_work else loss
 
 
-def _local_value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
+def _local_value_and_grad(leaves, scene, bh, rays, target, cfg, key, mesh,
                           tables):
     """(loss, gradients, trace calls) of `image_loss` at `leaves`, tensors
     that require grad, with `mesh` this rank's share of both (no
     collective); a leaf the loss does not reach gets a zero gradient."""
     loss, work = image_loss(SceneParams.from_leaves(leaves), scene, bh,
-                            rays, target, cfg, gen, mesh, tables, True)
+                            rays, target, cfg, key, mesh, tables, True)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
     return loss.detach(), grads, work.calls
 
 
-def _value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
+def _value_and_grad(leaves, scene, bh, rays, target, cfg, key, mesh,
                     tables):
     """(loss, gradients, trace calls) of `image_loss` at `leaves`. With
     `mesh` the loss and the gradients are summed over the ranks after each
@@ -197,7 +199,7 @@ def _value_and_grad(leaves, scene, bh, rays, target, cfg, gen, mesh,
     (`pack_flat`, `all_reduce_sum`, `unpack_flat`): the ops that
     `LossAndGrad`'s two halves run on either side of it."""
     loss, grads, calls = _local_value_and_grad(
-        leaves, scene, bh, rays, target, cfg, gen, mesh, tables)
+        leaves, scene, bh, rays, target, cfg, key, mesh, tables)
     if mesh is not None:
         flat = pdist.all_reduce_sum(pdist.pack_flat([loss, *grads]), mesh)
         loss, *grads = pdist.unpack_flat(flat, [loss, *grads])
@@ -214,20 +216,20 @@ def _sgd(leaves, grads, lr):
 def loss_and_grad(params: SceneParams, scene: SceneData,
                   bh: Optional[BlackHoleParams], rays: Rays,
                   target: torch.Tensor, cfg: RenderConfig,
-                  gen: torch.Generator, mesh=None):
+                  key: torch.Tensor, mesh=None):
     """(loss, gradient as SceneParams) of `image_loss`, eagerly; a leaf the
     loss does not reach gets a zero gradient. With `mesh` both are summed
     over the ranks after each rank's own backward pass. `LossAndGrad` is
     the compiled form."""
     leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
     loss, grads, _ = _value_and_grad(leaves, scene, bh, rays, target, cfg,
-                                     gen, mesh, None)
+                                     key, mesh, None)
     return loss, SceneParams.from_leaves(grads)
 
 
 def train_step(params: SceneParams, opt_state, scene: SceneData,
                bh: Optional[BlackHoleParams], rays: Rays, target, cfg,
-               gen: torch.Generator, lr: float = 1e-2, mesh=None,
+               key: torch.Tensor, lr: float = 1e-2, mesh=None,
                step: Optional["LossAndGrad"] = None):
     """One inverse-rendering SGD step on the `nan_to_num`'d gradient
     (summed over the ranks of `mesh`). With `step`, a `LossAndGrad` built
@@ -239,8 +241,8 @@ def train_step(params: SceneParams, opt_state, scene: SceneData,
                 or step.cfg != cfg or step.mesh is not mesh):
             raise ValueError("the step was built for another scene, hole, "
                              "config or mesh")
-        return step.train_step(params, opt_state, gen, lr, rays, target)
-    loss, g = loss_and_grad(params, scene, bh, rays, target, cfg, gen, mesh)
+        return step.train_step(params, opt_state, key, lr, rays, target)
+    loss, g = loss_and_grad(params, scene, bh, rays, target, cfg, key, mesh)
     return SceneParams.from_leaves(_sgd(params.leaves(), g.leaves(), lr)), \
         opt_state, loss
 
@@ -257,12 +259,12 @@ class LossAndGrad:
     tables are built once; every evaluation writes the hole's row from the
     leaves on the device (`bind_params`). A call copies the caller's
     params (and rays and target, when given) into the buffers and the
-    caller's generator's state into the step's own generator; it runs the
-    forward estimate, `torch.autograd.grad` over the leaves and the
-    `nan_to_num`'d SGD update, hands the generator's advanced state back,
-    and returns copies (a caller may keep an earlier step's results). So
-    the step draws what the eager step draws from the same generator, and
-    a fresh generator of one seed at every call evaluates one objective.
+    caller's key into the static (2,) buffer `key`; it runs the forward
+    estimate, `torch.autograd.grad` over the leaves and the
+    `nan_to_num`'d SGD update, and returns copies (a caller may keep an
+    earlier step's results). So the step draws what the eager step draws
+    under the same key, and one key at every call evaluates one
+    objective.
 
     With `mesh` the step is split at its one all-reduce: half A
     (`_half_a`: this rank's forward and backward, its loss share and
@@ -274,10 +276,8 @@ class LossAndGrad:
     With `graphs` (the default on a card, with or without a mesh) the
     step, or each half, is a `CapturedCall`: the first call runs eagerly
     on a side stream, the second is captured and replayed, later calls
-    replay, the seam running between the halves; the generator is
-    registered with the graph that draws (the step's, or half A's).
-    Without graphs (the CPU, or `graphs=False`) every call runs the same
-    step eagerly."""
+    replay, the seam running between the halves. Without graphs (the CPU,
+    or `graphs=False`) every call runs the same step eagerly."""
 
     def __init__(self, scene: SceneData, bh: Optional[BlackHoleParams],
                  cfg: RenderConfig, rays: Rays, target: torch.Tensor,
@@ -303,7 +303,7 @@ class LossAndGrad:
             size = 1 + sum(x.numel() for x in self.leaves)
             self.flat = torch.zeros(size, dtype=torch.float32, device=dev)
             self.summed = torch.zeros_like(self.flat)
-        self.gen = torch.Generator(device=dev)
+        self.key = torch.zeros(2, dtype=torch.int64, device=dev)
         # the CapturedCalls, made at the first call: the step (or half A)
         # and, with a mesh, half B
         self.call = self.update = None
@@ -320,7 +320,7 @@ class LossAndGrad:
         into `out`; returns its trace calls."""
         loss, grads, calls = _value_and_grad(
             self.leaves, self.scene, self.bh, self.rays, self.target,
-            self.cfg, self.gen, None, self.tables)
+            self.cfg, self.key, None, self.tables)
         self._write(out, loss, grads)
         return calls
 
@@ -329,7 +329,7 @@ class LossAndGrad:
         and gradients packed into `flat`; returns its trace calls."""
         loss, grads, calls = _local_value_and_grad(
             self.leaves, self.scene, self.bh, self.rays, self.target,
-            self.cfg, self.gen, self.mesh, self.tables)
+            self.cfg, self.key, self.mesh, self.tables)
         flat.copy_(pdist.pack_flat([loss, *grads]))
         return calls
 
@@ -347,7 +347,6 @@ class LossAndGrad:
             dev, sharded = self.scene.device, self.mesh is not None
             self.call = CapturedCall(
                 LossAndGrad._half_a if sharded else LossAndGrad._run, dev,
-                generators=(self.gen,),
                 name=("half A of the sharded gradient step" if sharded
                       else "the gradient step"))
             if sharded:
@@ -362,7 +361,7 @@ class LossAndGrad:
                  self.out)
         return calls
 
-    def _step(self, params: SceneParams, gen: torch.Generator, lr,
+    def _step(self, params: SceneParams, key: torch.Tensor, lr,
               rays: Optional[Rays], target: Optional[torch.Tensor]):
         with torch.no_grad():
             for name, buf, x in zip(
@@ -378,27 +377,26 @@ class LossAndGrad:
             if target is not None:
                 self.target.copy_(target)
             self.lr.fill_(lr)
-        self.gen.set_state(gen.get_state())
+            self.key.copy_(key)
         self.trace_calls = self._evaluate()
-        gen.set_state(self.gen.get_state())
         n = len(self.leaves)
         out = [b.clone() for b in self.out]
         return (out[0], SceneParams.from_leaves(out[1:1 + n]),
                 SceneParams.from_leaves(out[1 + n:]))
 
-    def __call__(self, params: SceneParams, gen: torch.Generator,
+    def __call__(self, params: SceneParams, key: torch.Tensor,
                  rays: Optional[Rays] = None,
                  target: Optional[torch.Tensor] = None):
         """(loss, gradient as SceneParams) at `params`, as `loss_and_grad`
         gives them; `rays` and `target` replace the step's when given."""
-        loss, grads, _ = self._step(params, gen, 0.0, rays, target)
+        loss, grads, _ = self._step(params, key, 0.0, rays, target)
         return loss, grads
 
     def train_step(self, params: SceneParams, opt_state,
-                   gen: torch.Generator, lr: float = 1e-2,
+                   key: torch.Tensor, lr: float = 1e-2,
                    rays: Optional[Rays] = None,
                    target: Optional[torch.Tensor] = None):
         """(params, opt_state, loss) of one SGD step, as `train_step`
         gives them."""
-        loss, _, new = self._step(params, gen, lr, rays, target)
+        loss, _, new = self._step(params, key, lr, rays, target)
         return new, opt_state, loss

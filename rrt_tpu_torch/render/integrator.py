@@ -18,13 +18,19 @@ only masks and material ids, go through the kernel outside autograd.
 Gradients reach the materials, the light radiance and the hole through
 the continuous factors; discrete decisions carry none.
 
-Random numbers come from the caller's `torch.Generator`, drawn in a fixed
-order per vertex: light samples, the roulette coin, the BSDF sample. A
-`parallel.sharding.LaneWindow` in its place makes the estimate of a
-rank's block of a larger batch: every draw takes the whole batch's shape
-and keeps the block's lanes, so that the blocks equal the whole batch's
-estimate. With `mesh=` every trace runs over the mesh's ranks
-(`geometry.trace`), each rank holding the whole batch.
+Random numbers come from the caller's threefry key (`utils.prng`),
+split as the JAX package splits it (rrt_tpu/render/integrator.py:116,
+194, 253, 277, 291, 319-345): one key for the first vertex, one split
+into a key per scanned vertex, one for the last; at each vertex one key
+each for the light samples, the roulette coin and the BSDF sample. So the
+port draws the JAX package's uniforms on any device, and the functions
+that take uniforms (`lights.sample_light`, `bsdf.sample`,
+`envmap.sample_L`) get them from the key here. With `lanes` = (lo, hi,
+n) the rays are the lanes [lo, hi) of a batch of n (a rank's block of a
+sharded batch), and every draw computes only its block of the whole
+batch's draw (`prng.uniform(window=)`), so that the blocks equal the
+whole batch's estimate. With `mesh=` every trace runs over the mesh's
+ranks (`geometry.trace`), each rank holding the whole batch.
 
 `Forward` is `est_radiance` of one batch as a compiled call, a CUDA
 graph on a card (the counterpart of the JAX package's jitted forward);
@@ -40,12 +46,13 @@ import torch
 
 from rrt_tpu_torch.geometry import trace as tracer
 from rrt_tpu_torch.ops.trace_kernel import TraceTables
-from rrt_tpu_torch.parallel.sharding import LaneWindow, lane_rand, on_axis
 from rrt_tpu_torch.render import bsdf as bsdflib
 from rrt_tpu_torch.render import lights as lightlib
 from rrt_tpu_torch.scene import envmap as envlib
-from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
+from rrt_tpu_torch.types import (LIGHT_ENV, BlackHoleParams, Hit, Rays,
+                                 SceneData)
 from rrt_tpu_torch.utils import math3d as m3
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 
@@ -69,9 +76,19 @@ def _no_work(device) -> TraceWork:
     return TraceWork(torch.zeros(2, dtype=torch.float64, device=device))
 
 
-def _uniform(gen, shape, like: torch.Tensor):
-    """Uniforms from a `torch.Generator` or a `LaneWindow`."""
-    return lane_rand(gen, shape, like.device, like.dtype)
+def lane_uniform(key, shape, lanes=None, axis: int = 0):
+    """`prng.uniform(key, shape)`; with `lanes` = (lo, hi, n), `shape`'s
+    axis `axis` holds the lanes [lo, hi) of a batch of n, and the result
+    is that block of the batch's draw."""
+    if lanes is None:
+        return prng.uniform(key, shape)
+    lo, hi, n = lanes
+    if shape[axis] != hi - lo:
+        raise ValueError(f"lane axis {axis} of {tuple(shape)} is not the "
+                         f"lanes [{lo}, {hi})")
+    whole = list(shape)
+    whole[axis] = n
+    return prng.uniform(key, whole, window=(axis, lo, hi))
 
 
 def _trace(scene, bh, tab: TraceTables, rays, cfg: RenderConfig,
@@ -106,19 +123,40 @@ def _frames(hit: Hit):
     return m3.make_coord_space(hit.n)
 
 
-def light_samples(scene: SceneData, hit: Hit, cfg: RenderConfig,
-                  gen) -> list:
+def light_samples(scene: SceneData, hit: Hit, cfg: RenderConfig, key,
+                  lanes=None) -> list:
     """The (light, sample) draws of one vertex's NEE, in order: per
-    light, 1 (delta) or ns_area_light samples."""
-    samples = []
-    for li in range(scene.lights.kind.shape[0]):
-        ns = 1 if lightlib.is_delta_light(scene.lights, li) \
-            else cfg.ns_area_light
+    light, 1 (delta) or ns_area_light samples, each from its own key
+    (`key, k = split(key)`, rrt_tpu/render/integrator.py:116). A draw's
+    uniforms are the JAX package's `sample_light`'s from k: (..., 2) of
+    k for the hemisphere, area and importance-sampled environment lights,
+    made in one launch for all of them (rrt_tpu/render/lights.py:66,
+    108; scene/envmap.py:130); (z, φ) from the two keys of split(k) for
+    the uniformly sampled environment (lights.py:138-140); none for a
+    delta light."""
+    lights, shape = scene.lights, hit.t.shape
+    keys = []
+    for li in range(lights.kind.shape[0]):
+        ns = 1 if lightlib.is_delta_light(lights, li) else cfg.ns_area_light
         for _ in range(ns):
-            xi = _uniform(gen, hit.t.shape + (2,), hit.p)
-            samples.append(lightlib.sample_light(
-                scene.lights, li, hit.p, xi, scene.env,
-                cfg.env_importance_sampling))
+            key, k = prng.split(key)
+            keys.append((li, k))
+    pairs = [i for i, (li, _) in enumerate(keys)
+             if not lightlib.is_delta_light(lights, li)
+             and not (lights.kind_host[li] == LIGHT_ENV
+                      and not cfg.env_importance_sampling)]
+    xi = dict.fromkeys(range(len(keys)))
+    if pairs:
+        u = lane_uniform(torch.stack([keys[i][1] for i in pairs]),
+                         shape + (2,), lanes)
+        xi.update(zip(pairs, u))
+    samples = []
+    for i, (li, k) in enumerate(keys):
+        if lights.kind_host[li] == LIGHT_ENV and xi[i] is None:
+            zphi = lane_uniform(prng.split(k), shape, lanes)
+            xi[i] = torch.stack([zphi[0], zphi[1]], dim=-1)
+        samples.append(lightlib.sample_light(
+            lights, li, hit.p, xi[i], scene.env, cfg.env_importance_sampling))
     return samples
 
 
@@ -137,7 +175,8 @@ def shadow_rays(bh, hit: Hit, frames, chunk: list, cfg: RenderConfig):
 
 
 def direct_lighting_importance(scene: SceneData, bh, tab: TraceTables,
-                               hit: Hit, cfg: RenderConfig, gen, mesh=None):
+                               hit: Hit, cfg: RenderConfig, key, mesh=None,
+                               lanes=None):
     """estimate_direct_lighting_importance (part1_code.cpp:33-57): the
     (light, sample) axis of `light_samples` is stacked and traced in
     chunks of at most cfg.nee_chunk, one shadow query per chunk."""
@@ -145,7 +184,7 @@ def direct_lighting_importance(scene: SceneData, bh, tab: TraceTables,
         return torch.zeros_like(hit.p), _no_work(hit.p.device)
     frames = _frames(hit)
     wo = m3.to_local(*frames, hit.w_out)
-    samples = light_samples(scene, hit, cfg, gen)
+    samples = light_samples(scene, hit, cfg, key, lanes)
     total = len(samples)
 
     L = torch.zeros_like(hit.p)
@@ -168,7 +207,8 @@ def direct_lighting_importance(scene: SceneData, bh, tab: TraceTables,
 
 
 def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
-                               hit: Hit, cfg: RenderConfig, gen, mesh=None):
+                               hit: Hit, cfg: RenderConfig, key, mesh=None,
+                               lanes=None):
     """estimate_direct_lighting_hemisphere (part1_code.cpp:15-31): uniform
     hemisphere directions, the emission of whatever they hit."""
     n_lights = scene.lights.kind.shape[0]
@@ -176,7 +216,7 @@ def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
     fx, fy, fz = _frames(hit)
     wo = m3.to_local(fx, fy, fz, hit.w_out)
     shape = hit.t.shape
-    xi = _uniform(on_axis(gen, 1), (num,) + shape + (2,), hit.p)
+    xi = lane_uniform(key, (num,) + shape + (2,), lanes, axis=1)
     theta = torch.acos(xi[..., 0])
     phi = 2.0 * PI * xi[..., 1]
     wi_l = torch.stack([torch.sin(theta) * torch.cos(phi),
@@ -198,22 +238,23 @@ def direct_lighting_hemisphere(scene: SceneData, bh, tab: TraceTables,
             work)
 
 
-def _direct(scene, bh, tab, hit, cfg, gen, mesh):
-    if cfg.direct_hemisphere_sample:
-        return direct_lighting_hemisphere(scene, bh, tab, hit, cfg, gen,
-                                          mesh)
-    return direct_lighting_importance(scene, bh, tab, hit, cfg, gen, mesh)
+def _direct(scene, bh, tab, hit, cfg, key, mesh, lanes):
+    direct = (direct_lighting_hemisphere if cfg.direct_hemisphere_sample
+              else direct_lighting_importance)
+    return direct(scene, bh, tab, hit, cfg, key, mesh, lanes)
 
 
 def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
-                 rays: Rays, cfg: RenderConfig, gen, tab: TraceTables,
-                 mesh=None):
+                 rays: Rays, cfg: RenderConfig, key, tab: TraceTables,
+                 mesh=None, lanes=None):
     """est_radiance_global_illumination (part1_code.cpp:103-123) for a
     flat batch of camera rays, traced through `tab` =
-    `build_tables(scene, bh)`, with uniforms from `gen` (a
-    `torch.Generator`, or a `LaneWindow` for a block of a larger batch).
-    With `mesh` every trace runs over its ranks. Returns ((..., 3)
-    radiance, TraceWork)."""
+    `build_tables(scene, bh)`, with uniforms from the (2,) threefry `key`
+    (moved to the rays' device). `lanes` = (lo, hi, n): the rays are the
+    lanes [lo, hi) of a batch of n, and the draws that block of the
+    batch's. With `mesh` every trace runs over its ranks. Returns ((...,
+    3) radiance, TraceWork)."""
+    key = key.to(rays.o.device)
     hit, work = _trace(scene, bh, tab, rays, cfg, mesh=mesh)
     L = torch.zeros_like(rays.d)
     if scene.env is not None:          # along the ORIGINAL direction
@@ -225,7 +266,8 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
         return torch.where(hit.hit[..., None], hit.n * 0.5 + 0.5, L), work
 
     if cfg.illum == Illum.DIRECT:
-        Ld, w = _direct(scene, bh, tab, hit, cfg, gen, mesh)
+        key, k = prng.split(key)
+        Ld, w = _direct(scene, bh, tab, hit, cfg, k, mesh, lanes)
         return L + Ld, work + w
 
     md = cfg.max_ray_depth
@@ -237,25 +279,30 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
     beta = torch.ones_like(rays.d)
     alive = hit.hit
 
-    def vertex(L, beta, alive, hit, work, first, do_bounce, rr):
-        """One path vertex: NEE, then optionally a (roulette) bounce."""
+    def vertex(L, beta, alive, hit, work, kk, first, do_bounce, rr):
+        """One path vertex from its key kk: NEE, then optionally a
+        (roulette) bounce."""
+        k_nee, k_coin, k_bsdf = prng.split(kk, 3)
         delta = bsdflib.is_delta(scene.bsdfs, hit.bsdf_id)
         if not (first and cfg.illum == Illum.INDIRECT):
-            nee, w = _direct(scene, bh, tab, hit, cfg, gen, mesh)
+            nee, w = _direct(scene, bh, tab, hit, cfg, k_nee, mesh, lanes)
             L = L + torch.where((alive & ~delta)[..., None], beta * nee, 0.0)
             work = work + w
         if not do_bounce:
             return L, beta, alive, hit, work
         cont = alive
         if rr:
-            cont = cont & (_uniform(gen, alive.shape, hit.t) < RR_PROB)
+            cont = cont & (lane_uniform(k_coin, alive.shape, lanes)
+                           < RR_PROB)
         fx, fy, fz = _frames(hit)
         wo = m3.to_local(fx, fy, fz, hit.w_out)
         shape = hit.t.shape
-        smp = bsdflib.sample(scene.bsdfs, hit.bsdf_id, wo,
-                             _uniform(gen, shape + (2,), hit.t),
-                             _uniform(gen, shape + (2,), hit.t),
-                             _uniform(gen, shape, hit.t),
+        # bsdf.sample's three draws (rrt_tpu/render/bsdf.py:184-227):
+        # the two (..., 2) in one launch
+        k_xi = prng.split(k_bsdf, 3)
+        xi = lane_uniform(k_xi[:2], shape + (2,), lanes)
+        smp = bsdflib.sample(scene.bsdfs, hit.bsdf_id, wo, xi[0], xi[1],
+                             lane_uniform(k_xi[2], shape, lanes),
                              microfacet_hemi=cfg.microfacet_hemi)
         cont = cont & (smp.pdf > 0)
         wi_w = m3.to_world(fx, fy, fz, smp.wi)
@@ -275,14 +322,19 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
         return L, torch.where(cont[..., None], beta2, beta), cont, h2, work
 
     # vertex d = md: NEE + an unconditional bounce (when md ≥ 2)
-    state = vertex(L, beta, alive, hit, work, first=True,
+    key, k0 = prng.split(key)
+    state = vertex(L, beta, alive, hit, work, k0, first=True,
                    do_bounce=md >= 2, rr=False)
-    # vertices d = md-1 .. 2: NEE + a roulette bounce
-    for _ in range(md - 2):
-        state = vertex(*state, first=False, do_bounce=True, rr=True)
+    # vertices d = md-1 .. 2: NEE + a roulette bounce, a key each
+    if md >= 3:
+        key, ks = prng.split(key)
+        for kk in prng.split(ks, md - 2):
+            state = vertex(*state, kk, first=False, do_bounce=True, rr=True)
     # final vertex d = 1: NEE only
     if md >= 2:
-        state = vertex(*state, first=False, do_bounce=False, rr=False)
+        key, k_last = prng.split(key)
+        state = vertex(*state, k_last, first=False, do_bounce=False,
+                       rr=False)
     return state[0], state[4]
 
 
@@ -293,11 +345,12 @@ class Forward:
     (rrt_tpu/render/renderer.py:177-182, tools/scaling_bench.py:203-210).
 
     `rays` are the call's static buffers (copy new rays into them between
-    calls) and `gen` its generator, seeded at every call. With `window` =
-    (lo, hi, n) the rays are the lanes [lo, hi) of a batch of n, and the
-    draws are windowed to them (`LaneWindow`: the block a rank of a
-    sharded pass estimates). With `mesh` every trace runs over its ranks,
-    its gather and its all-reduce inside the call.
+    calls), and so is `key`, the (2,) threefry key that a call copies its
+    argument into. With `window` = (lo, hi, n) the rays are the lanes
+    [lo, hi) of a batch of n, and the draws that block of the batch's
+    (the block a rank of a sharded pass estimates). With `mesh` every
+    trace runs over its ranks, its gather and its all-reduce inside the
+    call.
 
     With `graphs` the call is a `CapturedCall`, made at the first call:
     the first call eager, the second captured and replayed, every later
@@ -318,18 +371,18 @@ class Forward:
             mesh is None or mesh.backend != "gloo")
             if graphs is None else bool(graphs))
         self.device, self.mesh = dev, mesh
-        self.gen = torch.Generator(dev)
-        draws = self.gen if window is None else LaneWindow(self.gen, *window)
-        self.fn = lambda: est_radiance(scene, bh, rays, cfg, draws, tab,
-                                       mesh=mesh)
+        # the call reads the key buffer, not self: a forward dropped is
+        # freed at once, its graph (and a graph's NCCL work) with it
+        key = self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.fn = lambda: est_radiance(scene, bh, rays, cfg, key, tab,
+                                       mesh=mesh, lanes=window)
         self.call = None
 
-    def __call__(self, seed: int):
-        """The forward with the generator seeded with `seed`."""
+    def __call__(self, key: torch.Tensor):
+        """The forward under the (2,) threefry `key`."""
         if self.graphs and self.call is None:
             route = "per-trace sharded " if self.mesh is not None else ""
             self.call = CapturedCall(self.fn, self.device,
-                                     generators=(self.gen,),
                                      name=f"the {route}forward")
-        self.gen.manual_seed(seed)
+        self.key.copy_(key)
         return run_call(self.call, self.fn)

@@ -34,10 +34,11 @@ import numpy as np
 import torch
 
 from rrt_tpu_torch.parallel.distributed import all_gather_lanes
-from rrt_tpu_torch.parallel.sharding import pad_to_multiple, shard_batch
+from rrt_tpu_torch.parallel.sharding import pad_to_multiple, shard_bounds
 from rrt_tpu_torch.physics import kerr
 from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import EnvMap, _Tensors
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.graphs import CapturedCall
 
 # march steps a captured block holds: a 1024² step launches ~840 kernels,
@@ -214,10 +215,11 @@ def render_rays(o_world, d_world, bh: kerr.KerrParams, disk: DiskParams,
 
 
 def look_at_rays(eye, target, up, fov_deg, width, height, jitter=None,
-                 device="cuda"):
+                 device="cuda", lanes=None):
     """A look-at pinhole camera (the Kerr scene has no COLLADA camera):
     flat (n, 3) origins and directions, rows from the top; `jitter` (n, 2)
-    in pixels, the pixel centres without it."""
+    in pixels, the pixel centres without it. `lanes` = (lo, hi): the rays
+    of those pixels only (jitter then (hi − lo, 2))."""
     f32 = torch.float32
     eye = torch.as_tensor(eye, dtype=f32, device=device)
     fwd = torch.as_tensor(target, dtype=f32, device=device) - eye
@@ -226,10 +228,9 @@ def look_at_rays(eye, target, up, fov_deg, width, height, jitter=None,
                                                     device=device))
     right = right / torch.linalg.vector_norm(right)
     upv = torch.linalg.cross(right, fwd)
-    ys, xs = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
-                            torch.arange(width, dtype=f32, device=device),
-                            indexing="ij")
-    px = torch.stack([xs, ys], -1).reshape(-1, 2)
+    lo, hi = lanes or (0, width * height)
+    pix = torch.arange(lo, hi, device=device)
+    px = torch.stack([pix % width, pix // width], -1).to(f32)
     px = px + (jitter if jitter is not None else 0.5)
     tan_f = math.tan(math.radians(fov_deg) / 2.0)
     ar = width / height
@@ -248,15 +249,17 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
                  sharding=None, graphs: Optional[bool] = None) -> np.ndarray:
     """Render the Kerr-disk scene on `device` to an (H, W, 3) HDR image
     (rows from the top), `batch` lanes at a time. With spp > 1 each sample
-    jitters the pixels by uniforms from a `torch.Generator` seeded with
-    `seed` (the JAX package draws threefry uniforms, so its spp > 1 images
-    agree with these only statistically).
+    jitters the pixels by the JAX package's uniforms: key(seed), split
+    once a sample, an (n, 2) draw from the sample's key
+    (rrt_tpu/render/kerr_scene.py:189-195), so its images equal the JAX
+    package's up to the march's arithmetic.
 
     `sharding` (a `parallel.sharding.LaneSharding`) splits every batch
     over the ranks of its mesh, as the JAX package does
     (rrt_tpu/render/kerr_scene.py:178-221): the batch is padded to a
-    multiple of the world (o with 0, d with 1.0), each rank marches its
-    block, and the blocks are gathered; every rank returns the image.
+    multiple of the world (o with 0, d with 1.0), each rank makes and
+    marches its block's rays, drawing only its block's jitter, and the
+    blocks are gathered; every rank returns the image.
 
     `graphs`: march in captured blocks (`DiskMarch`), sharded or not; the
     default on a card. A sharded batch's gather runs eagerly after its
@@ -272,24 +275,32 @@ def render_image(width, height, bh: kerr.KerrParams, disk: DiskParams,
     env = env.to(device) if env is not None else None
     n = width * height
     acc = torch.zeros((n, 3), dtype=torch.float32, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    key = prng.key(seed, device)
+
+    def rays(k, lo, hi):
+        """The rays of pixels [lo, hi), jittered by their block of the
+        sample's draw."""
+        jitter = (None if k is None else
+                  prng.uniform(k, (n, 2), window=(0, lo, hi)))
+        return look_at_rays(eye, target, (0.0, 1.0, 0.0), fov_deg, width,
+                            height, jitter, device, (lo, hi))
+
     for _ in range(spp):
-        jitter = (None if spp == 1 else
-                  torch.rand((n, 2), generator=gen, device=device))
-        o, d = look_at_rays(eye, target, (0.0, 1.0, 0.0), fov_deg, width,
-                            height, jitter, device)
+        k = None
+        if spp > 1:
+            key, k = prng.split(key)
         for i in range(0, n, batch):
-            ob, db = o[i:i + batch], d[i:i + batch]
+            m = min(batch, n - i)
             if mesh is None:
-                acc[i:i + batch] += render_rays(ob, db, bh, disk, env,
-                                                n_steps, march=march)
+                acc[i:i + m] += render_rays(*rays(k, i, i + m), bh, disk,
+                                            env, n_steps, march=march)
                 continue
-            m = ob.shape[0]
-            pad = pad_to_multiple(m, mesh.world) - m
+            lo, hi = shard_bounds(pad_to_multiple(m, mesh.world), mesh.rank,
+                                  mesh.world)
+            ob, db = rays(k, i + min(lo, m), i + min(hi, m))
+            pad = hi - lo - ob.shape[0]
             ob = torch.cat([ob, ob.new_zeros((pad, 3))])
             db = torch.cat([db, db.new_ones((pad, 3))])
-            part = render_rays(shard_batch(ob, mesh), shard_batch(db, mesh),
-                               bh, disk, env, n_steps, march=march)
-            acc[i:i + batch] += all_gather_lanes(part, mesh, m)
+            part = render_rays(ob, db, bh, disk, env, n_steps, march=march)
+            acc[i:i + m] += all_gather_lanes(part, mesh, m)
     return (acc / spp).reshape(height, width, 3).cpu().numpy()

@@ -3,8 +3,10 @@
 
 Each call samples one light row for a whole lane batch, as the reference's
 per-light loop does (part1_code.cpp:41-55); the environment light
-delegates to `scene.envmap`. Uniforms come in as a tensor `xi` (..., 2) so
-that the caller decides where they come from.
+delegates to `scene.envmap`. Uniforms come in as a tensor `xi` (..., 2):
+the integrator draws them from each sample's key as the JAX package's
+`sample_light` draws them (`render/integrator.light_samples`), and tests
+hand both packages the same ones.
 """
 from __future__ import annotations
 

@@ -8,19 +8,23 @@ runs the same k with its surplus samples masked. Adaptive sampling
 (part1_code.cpp:147-159) freezes a pixel once 1.96·σ/√n ≤ tol·mean at a
 batch boundary; a frozen pixel's lanes end at once.
 
-Every pass draws its random numbers from a `torch.Generator` seeded from
-(cfg.seed, first sample index of the pass, band index) (`pass_seed`), so
-a render is reproducible on one device. The port renders each region as
-one band (index 0).
+Every pass draws its random numbers from the JAX package's key of the
+pass, fold_in(fold_in(key(cfg.seed), first sample index of the pass),
+band index) (`pass_key`; rrt_tpu/render/renderer.py:398,412-413), split
+into the jitter's, the lens's and the integrator's keys as the JAX
+package splits it (`prng`, threefry on the device), so one seed renders
+the JAX package's image on the CPU or on a card. The port renders each
+region as one band (index 0).
 
 One pass runner serves every pass of a shape (k, rw, rh)
 (`Renderer._pass_fn`, named after the JAX package's): the accumulators
 are its static buffers, updated in place, and what changes from pass to
 pass (the first sample index, the number of live samples, the region
-origin, the generator's seed) is written into device tensors and the
-runner's generator before the pass. On CUDA the shape's first pass runs
-eagerly, its second is captured once as a CUDA graph and replayed, and
-every later pass of the shape replays it (`utils/graphs.CapturedCall`);
+origin, the render's key) is written into the runner's device tensors
+before the pass, and the pass derives its key from them on the device.
+On CUDA the shape's first pass runs eagerly, its second is captured once
+as a CUDA graph and replayed, and every later pass of the shape replays
+it (`utils/graphs.CapturedCall`);
 `graphs=False` runs it eagerly, as the CPU always does. A sharded pass is
 two graphs around its one collective (`PassRunner`).
 
@@ -31,7 +35,7 @@ pathtracer.cpp:180-202):
     area;
   * `checkpoint_path=` saves the accumulators and the pass index; a
     render resumed from it equals the uninterrupted render bit for bit,
-    since a pass's generator depends only on (seed, pass index);
+    since a pass's key depends only on (seed, pass index);
   * `preview_path=` writes a progressive PNG between passes (the viewer's
     `update_screen` blit, pathtracer.cpp:156-178);
   * `stop()`, `stop_after=`, a `control` mapping (`--serve`'s POST
@@ -41,9 +45,10 @@ pathtracer.cpp:180-202):
 `sharding=` (a `parallel.sharding.LaneSharding`) splits every pass's k·n
 lanes over the ranks of its mesh, one process per device: each rank
 makes the camera rays of its block (`shard_bounds`), estimates them with
-the pass's draws windowed to its lanes (`LaneWindow`), and the blocks'
-radiance is gathered, so that every rank accumulates the same radiance
-as a single-process render, bit for bit. Decisions that end the pass loop
+its block of the pass's draws (`prng.uniform(window=)`: it computes only
+its lanes' uniforms), and the blocks' radiance is gathered, so that
+every rank accumulates the same radiance as a single-process render, bit
+for bit. Decisions that end the pass loop
 are agreed by one all-reduce at each pass boundary, between passes and
 outside any graph; rank 0 alone writes checkpoints, previews and the
 image.
@@ -62,13 +67,14 @@ import torch
 from rrt_tpu_torch.convert import black_hole_from_arrays
 from rrt_tpu_torch.ops.trace_kernel import build_tables
 from rrt_tpu_torch.parallel import distributed as pdist
-from rrt_tpu_torch.parallel.sharding import (LaneWindow, lane_rand,
-                                             shard_bounds)
+from rrt_tpu_torch.parallel.sharding import shard_bounds
 from rrt_tpu_torch.render import film
-from rrt_tpu_torch.render.integrator import _mask_rays, est_radiance
+from rrt_tpu_torch.render.integrator import (_mask_rays, est_radiance,
+                                             lane_uniform)
 from rrt_tpu_torch.render.lights import is_delta_light
 from rrt_tpu_torch.scene.camera import Camera
 from rrt_tpu_torch.types import BlackHoleParams, SceneData
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 from rrt_tpu_torch.utils.stats import PhaseTimer, RenderStats
@@ -81,19 +87,12 @@ def make_black_hole(cfg: RenderConfig, device) -> Optional[BlackHoleParams]:
     return black_hole_from_arrays(b.position, b.radius, b.delta_theta, device)
 
 
-def pass_seed(seed: int, sample_idx: int, band: int) -> int:
-    """The seed of one (pass, band)'s generator, derived from the render
-    seed."""
-    state = np.random.SeedSequence([seed, sample_idx, band]).generate_state(2)
-    return int(state[0]) << 32 | int(state[1])
-
-
-def pass_generator(seed: int, sample_idx: int, band: int, device
-                   ) -> torch.Generator:
-    """The generator of one (pass, band)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(pass_seed(seed, sample_idx, band))
-    return gen
+def pass_key(base: torch.Tensor, sample_idx, band: int = 0
+             ) -> torch.Tensor:
+    """The key of one (pass, band): fold_in(fold_in(base, sample_idx),
+    band), `base` the render's key(cfg.seed) and `sample_idx` the pass's
+    first sample, an int or a 0-d integer tensor on base's device."""
+    return prng.fold_in(prng.fold_in(base, sample_idx), band)
 
 
 class PassRunner:
@@ -108,8 +107,10 @@ class PassRunner:
     inputs, device tensors the pass reads: `sample_idx` (the pass's first
     sample), `n_valid` (its live samples; the tail pass has fewer than k)
     and the region origin `x0`, `y0`, so that the tail pass, the cells of
-    one size and the adaptive batch boundaries all share one pass. The
-    pass draws from `gen`, re-seeded with `pass_seed` before every pass.
+    one size and the adaptive batch boundaries all share one pass. `base`
+    holds the render's key(seed); the pass derives its key from it and
+    `sample_idx` on the device (`pass_key`), so a replay draws the
+    uniforms of the pass it replays.
 
     With a `mesh` the pass is split at its one collective, the gather of
     the ranks' radiance (`parallel.distributed`): the rank half
@@ -122,10 +123,10 @@ class PassRunner:
     (`Renderer._sample_pass`).
 
     With `graphs` the pass, or each half, is a `CapturedCall` sharing the
-    renderer's graph pool (the rank half holds the generator): the first
-    pass of the shape runs eagerly, the second is captured and replayed,
-    and every later pass replays the graphs, the seam running between
-    them; a shape that runs one pass is never captured."""
+    renderer's graph pool: the first pass of the shape runs eagerly, the
+    second is captured and replayed, and every later pass replays the
+    graphs, the seam running between them; a shape that runs one pass is
+    never captured."""
 
     def __init__(self, device, k: int, rw: int, rh: int, graphs: bool,
                  pool=None, mesh=None):
@@ -139,24 +140,21 @@ class PassRunner:
         self.sample_idx = z(torch.int32, ())
         self.n_valid = z(torch.int32, ())
         self.x0, self.y0 = z(torch.int64, ()), z(torch.int64, ())
-        self.gen = torch.Generator(device=device)
+        self.base = z(torch.int64, (2,))
         self.passes = 0
         name = f"(k, rw, rh) = {(k, rw, rh)}"
-        capture = lambda fn, what, gens=(): CapturedCall(
-            fn, device, pool, gens, name=f"{what} {name}") if graphs \
-            else None
+        capture = lambda fn, what: CapturedCall(
+            fn, device, pool, name=f"{what} {name}") if graphs else None
         self.accumulate = None
         if mesh is None:
-            self.call = capture(Renderer._sample_pass, "the pass",
-                                (self.gen,))
+            self.call = capture(Renderer._sample_pass, "the pass")
             return
         # this rank's block of the radiance, zero past its live lanes, and
         # every rank's radiance gathered
         lo, hi = shard_bounds(k * n, mesh.rank, mesh.world)
         self.sent = z(shape=(hi - lo, 3))
         self.whole = z(shape=(k * n, 3))
-        self.call = capture(Renderer._rank_half, "the rank half of the pass",
-                            (self.gen,))
+        self.call = capture(Renderer._rank_half, "the rank half of the pass")
         self.accumulate = capture(Renderer._accumulate_half,
                                   "the accumulate half of the pass")
 
@@ -182,7 +180,7 @@ class PassRunner:
         self.n_valid.fill_(ks)
         self.x0.fill_(x0)
         self.y0.fill_(y0)
-        self.gen.manual_seed(pass_seed(seed, s, 0))
+        self.base.copy_(prng.key(seed))
         self.passes += 1
         if self.mesh is None:
             return run_call(self.call, Renderer._sample_pass, renderer,
@@ -274,13 +272,15 @@ class Renderer:
             self._pass_fns[(k, rw, rh)] = runner
         return runner
 
-    def camera_rays(self, jitter, gen, k: int, region=None, lanes=None):
+    def camera_rays(self, jitter, key, k: int, region=None, lanes=None):
         """The k·rw·rh camera rays of one pass over the window region =
         (x0, y0, rw, rh), the whole frame by default: pixel (x + jitter) /
         size, sample-major; a jitter of one row is shared by every lane.
         The origin (x0, y0) may be ints or 0-d integer device tensors (a
-        pass runner's). `lanes` = (lo, hi) makes only those lanes of the
-        pass (a rank's block; `gen` is then its `LaneWindow`)."""
+        pass runner's). A thin lens draws from `key`, split in two (the
+        JAX package's `_rays_for`, rrt_tpu/render/renderer.py:141-143).
+        `lanes` = (lo, hi) makes only those lanes of the pass (a rank's
+        block), with their block of the draws."""
         cfg, dev = self.cfg, self.device
         x0, y0, rw, rh = region or (0, 0, cfg.width, cfg.height)
         lo, hi = lanes or (0, k * rw * rh)
@@ -292,8 +292,10 @@ class Renderer:
             jitter = jitter[:1].expand(m, 2)
         xy = (px + jitter) / self._frame_size
         if cfg.thin_lens:
-            rnd_r = lane_rand(gen, (m,), dev)
-            rnd_th = lane_rand(gen, (m,), dev) * 2.0 * math.pi
+            k1, k2 = prng.split(key)
+            window = (lo, hi, k * rw * rh)
+            rnd_r = lane_uniform(k1, (m,), window)
+            rnd_th = lane_uniform(k2, (m,), window) * 2.0 * math.pi
             return self.camera.generate_rays_thin_lens(xy, rnd_r, rnd_th)
         return self.camera.generate_rays(xy)
 
@@ -304,26 +306,29 @@ class Renderer:
 
     def _radiance(self, p: PassRunner, masks):
         """The radiance of the pass's lanes [lo, hi) (this rank's block,
-        all k·n lanes unsharded) and the integrator's `TraceWork`."""
+        all k·n lanes unsharded) and the integrator's `TraceWork`, under
+        the pass's key, derived on the device and split as the JAX
+        package's `_sample_pass` splits it (rrt_tpu/render/renderer.py:
+        163-168)."""
         cfg, dev, k = self.cfg, self.device, p.k
         active, valid_k = masks
         n = p.rw * p.rh
-        gen = p.gen
+        k_jit, k_lens, k_rad = prng.split(pass_key(p.base, p.sample_idx), 3)
         lo, hi = 0, k * n
         if self.mesh is not None:      # this rank's block of the k·n lanes
             lo, hi = shard_bounds(k * n, self.mesh.rank, self.mesh.world)
             lo, hi = min(lo, k * n), min(hi, k * n)
-            gen = LaneWindow(gen, lo, hi, k * n)
+        lanes = (lo, hi, k * n)
         if cfg.ns_aa == 1:
             jitter = torch.full((n, 2), 0.5, device=dev)
         else:
-            jitter = lane_rand(gen, (hi - lo, 2), dev)
-        rays = self.camera_rays(jitter, gen, k, (p.x0, p.y0, p.rw, p.rh),
+            jitter = lane_uniform(k_jit, (hi - lo, 2), lanes)
+        rays = self.camera_rays(jitter, k_lens, k, (p.x0, p.y0, p.rw, p.rh),
                                 (lo, hi))
         lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
         rays = _mask_rays(rays, lane_live[lo:hi], self.bh)
-        return est_radiance(self.scene, self.bh, rays, self.cfg, gen,
-                            self.tables)
+        return est_radiance(self.scene, self.bh, rays, self.cfg, k_rad,
+                            self.tables, lanes=lanes)
 
     def _accumulate(self, p: PassRunner, L: torch.Tensor, masks):
         """Add the first p.n_valid samples of the pass's radiance L (k·n, 3)
@@ -356,8 +361,8 @@ class Renderer:
     def _sample_pass(self, p: PassRunner) -> int:
         """Trace p.k samples of every pixel of p's window in one batch of
         k·n lanes (n = rw·rh) and add the first p.n_valid of them into p's
-        accumulators, in place: the unsharded pass. Reads only p's tensors
-        and generator, so that one capture serves every pass of the shape.
+        accumulators, in place: the unsharded pass. Reads only p's tensors,
+        so that one capture serves every pass of the shape.
         Returns the number of trace calls."""
         masks = self._masks(p)
         L, work = self._radiance(p, masks)

@@ -63,6 +63,8 @@ import time
 import numpy as np
 import torch
 
+from rrt_tpu_torch.utils import prng
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -206,7 +208,7 @@ def forwards(size: int, mesh, curved: bool = True, graphs=None):
     from rrt_tpu_torch.parallel.sharding import shard_bounds
     from rrt_tpu_torch.parallel.worker import forward_setup
     from rrt_tpu_torch.render.integrator import Forward
-    from rrt_tpu_torch.render.renderer import make_black_hole, pass_seed
+    from rrt_tpu_torch.render.renderer import make_black_hole
     from rrt_tpu_torch.ops.trace_kernel import build_tables
     from rrt_tpu_torch.types import Rays
     from rrt_tpu_torch.utils.config import BlackHoleConfig
@@ -217,7 +219,7 @@ def forwards(size: int, mesh, curved: bool = True, graphs=None):
     n = size * size
     lo, hi = shard_bounds(n, mesh.rank, mesh.world)
     lo, hi = min(lo, n), min(hi, n)
-    seed = pass_seed(cfg.seed, 0, 0)
+    key = prng.key(0, mesh.device)     # the JAX tool's key(0)
     block = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi], min_t=rays.min_t[lo:hi],
                  max_t=rays.max_t[lo:hi])
     fw = dict(
@@ -226,9 +228,9 @@ def forwards(size: int, mesh, curved: bool = True, graphs=None):
                         graphs=graphs),
         block_sharded=Forward(scene, bh, block, cfg, tab,
                               window=(lo, hi, n), graphs=graphs))
-    out = {name: (lambda f=f: f(seed)[0], f) for name, f in fw.items()}
+    out = {name: (lambda f=f: f(key)[0], f) for name, f in fw.items()}
     out["block_sharded"] = (
-        lambda: pdist.all_gather_lanes(fw["block_sharded"](seed)[0], mesh,
+        lambda: pdist.all_gather_lanes(fw["block_sharded"](key)[0], mesh,
                                        n), fw["block_sharded"])
     return out
 
@@ -365,14 +367,13 @@ def forward_case(mesh, size: int, curved: bool, reps: int = 5) -> dict:
     import gc
     from rrt_tpu_torch.ops import trace_kernel as tk
     from rrt_tpu_torch.parallel import distributed as pdist
-    from rrt_tpu_torch.render.renderer import pass_seed
     dev = mesh.device
     cuda = dev.type == "cuda"
     sync = _sync(dev)
     fs = dict(graph=forwards(size, mesh, curved)["sharded"][1],
               eager=forwards(size, mesh, curved, graphs=False)["sharded"][1],
               unsharded=forwards(size, mesh, curved)["device0"][1])
-    seed = pass_seed(0, 0, 0)
+    key = prng.key(0, dev)
     bad = []
 
     def run(label):
@@ -381,7 +382,7 @@ def forward_case(mesh, size: int, curved: bool, reps: int = 5) -> dict:
         replay = fs[label].call is not None and fs[label].call.calls > 0
         sync()
         t0 = time.perf_counter()
-        L, work = fs[label](seed)
+        L, work = fs[label](key)
         sync()
         wall = time.perf_counter() - t0
         if work.calls == 0 or cuda and (
@@ -413,7 +414,7 @@ def forward_case(mesh, size: int, curved: bool, reps: int = 5) -> dict:
             got = run(label)
             walls[label].append(got[0])
             check(label, got)
-    launches = {k: host_launches(lambda f=f: f(seed), dev)
+    launches = {k: host_launches(lambda f=f: f(key), dev)
                 for k, f in fs.items()}
     call = fs["graph"].call
     row = dict(size=size, lanes=size * size, curved=curved,

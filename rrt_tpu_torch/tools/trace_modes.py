@@ -348,10 +348,11 @@ def main_path_batches(device):
     from rrt_tpu_torch.ops import trace_kernel as tk
     from rrt_tpu_torch.render import integrator
     from rrt_tpu_torch.render.renderer import (Renderer, make_black_hole,
-                                               pass_generator)
+                                               pass_key)
     from rrt_tpu_torch.scene.build import load_scene
     from rrt_tpu_torch.scenes import CBOX_SPHERES
     from rrt_tpu_torch.utils import math3d as m3
+    from rrt_tpu_torch.utils import prng
     from rrt_tpu_torch.utils.config import RenderConfig
     cfg = RenderConfig(width=256, height=256, ns_aa=16, ns_area_light=4,
                        max_ray_depth=5)
@@ -360,12 +361,14 @@ def main_path_batches(device):
     rend = Renderer(scene, cam, cfg, device)
     n_px = cfg.width * cfg.height
     k_pass = rend.samples_per_pass(n_px)
-    gen = pass_generator(cfg.seed, 0, 0, device)
-    cam_rays = rend.camera_rays(
-        torch.rand((k_pass * n_px, 2), generator=gen, device=device), gen,
-        k_pass)
+    # the first pass's keys, and its first vertex's NEE key
+    k_jit, k_lens, k_rad = prng.split(
+        pass_key(prng.key(cfg.seed, device), 0), 3)
+    cam_rays = rend.camera_rays(prng.uniform(k_jit, (k_pass * n_px, 2)),
+                                k_lens, k_pass)
     hit = tk.kernel_trace(scene, rend.tables, cam_rays)
-    samples = integrator.light_samples(scene, hit, cfg, gen)
+    k_nee = prng.split(prng.split(k_rad)[1], 3)[0]
+    samples = integrator.light_samples(scene, hit, cfg, k_nee)
     if not len(samples) <= cfg.nee_chunk:
         raise AssertionError("the NEE samples span more than one chunk")
     _, _, shadow = integrator.shadow_rays(

@@ -209,10 +209,11 @@ def _main_path_batches(width, height):
     main path's Cornell box at width × height, 1 spp, on the CPU."""
     from rrt_tpu_torch.render import integrator
     from rrt_tpu_torch.render.renderer import (Renderer, make_black_hole,
-                                               pass_generator)
+                                               pass_key)
     from rrt_tpu_torch.scene.build import load_scene
     from rrt_tpu_torch.scenes import CBOX_SPHERES
     from rrt_tpu_torch.utils import math3d as m3
+    from rrt_tpu_torch.utils import prng
     from rrt_tpu_torch.utils.config import RenderConfig
     cfg = RenderConfig(width=width, height=height, ns_aa=1, ns_area_light=4,
                        max_ray_depth=5)
@@ -220,11 +221,12 @@ def _main_path_batches(width, height):
     scene, cam = load_scene(CBOX_SPHERES, cpu, 256, 256)
     rend = Renderer(scene, cam, cfg, cpu)
     bh = make_black_hole(cfg, cpu)
-    gen = pass_generator(cfg.seed, 0, 0, cpu)
-    cam_rays = rend.camera_rays(
-        torch.rand((width * height, 2), generator=gen), gen, 1)
+    k_jit, k_lens, k_rad = prng.split(pass_key(prng.key(cfg.seed), 0), 3)
+    cam_rays = rend.camera_rays(prng.uniform(k_jit, (width * height, 2)),
+                                k_lens, 1)
     hit = tk.kernel_trace(scene, rend.tables, cam_rays)
-    samples = integrator.light_samples(scene, hit, cfg, gen)
+    k_nee = prng.split(prng.split(k_rad)[1], 3)[0]
+    samples = integrator.light_samples(scene, hit, cfg, k_nee)
     _, _, shadow = integrator.shadow_rays(
         bh, hit, m3.make_coord_space(hit.n), samples, cfg)
     return rend.tables, (("camera closest-hit", cam_rays, False),

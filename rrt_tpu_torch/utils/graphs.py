@@ -50,10 +50,9 @@ raises, naming the innermost line of this package it was in; nothing
 falls back to eager. Autograd inside `fn` (Kerr's `_rhs`, the gradient
 step's backward) is captured in either mode.
 
-Generators that `fn` draws from are registered with the graph
-(`register_generator_state`); re-seeding one with `manual_seed` before a
-replay makes the replay draw what a fresh generator of that seed draws,
-bit for bit.
+Random numbers need nothing of a graph: `fn` derives its threefry keys
+on the device from its static buffers (`utils.prng`), so a replay draws
+what the eager call on the same buffers draws, bit for bit.
 
 A replay runs the trace kernel without its Python wrapper, so
 `ops.trace_kernel.LAUNCHES` counts only eager launches (a capture records
@@ -72,7 +71,7 @@ from __future__ import annotations
 import os
 import time
 import traceback
-from typing import Callable, Sequence
+from typing import Callable
 
 import torch
 
@@ -108,14 +107,11 @@ class CapturedCall:
     must be the same objects at every call (they hold the static buffers;
     a replay does not read them, and the call keeps no reference to them).
     `fn` returns a value that does not change between calls. `pool` is a
-    `torch.cuda.graph_pool_handle()` shared with the owner's other graphs;
-    `generators` are those `fn` draws from."""
+    `torch.cuda.graph_pool_handle()` shared with the owner's other
+    graphs."""
 
-    def __init__(self, fn: Callable, device, pool=None,
-                 generators: Sequence[torch.Generator] = (),
-                 name: str = "call"):
+    def __init__(self, fn: Callable, device, pool=None, name: str = "call"):
         self.fn, self.device, self.pool = fn, torch.device(device), pool
-        self.generators = tuple(generators)
         self.name = name
         self.graph = None
         self.result = None        # fn's return value, kept from the capture
@@ -136,8 +132,6 @@ class CapturedCall:
     def _capture(self, *args):
         """fn captured into a new graph; returns the graph."""
         graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
         with torch.cuda.graph(graph, pool=self.pool,
                               capture_error_mode=capture_mode()):
             self.result = self.fn(*args)

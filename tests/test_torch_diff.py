@@ -7,9 +7,9 @@ Both packages start from identical data: the JAX package's Cornell box
 `convert`, and its SceneParams through `diff.params_from_arrays`. Gradients
 with respect to the hole are compared on calm lanes only (`chaotic_lanes`:
 a lane whose march wraps or passes within 5 radii of the hole rounds onto
-another trajectory in either package). Material gradients are compared
-under shared uniforms: the JAX package's key splits are replayed and
-handed to the port's integrator in its draw order.
+another trajectory in either package). Both packages render under one
+key: the port splits the JAX package's threefry key as the JAX package
+does and draws its uniforms (`utils.prng`).
 """
 import numpy as np
 import jax
@@ -26,10 +26,10 @@ from rrt_tpu_torch.geometry import trace as ttrace
 from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.physics import schwarzschild as tss
 from rrt_tpu_torch.render import diff
-from rrt_tpu_torch.render import integrator
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.types import BSDF_EMISSION, BlackHoleParams, Rays
 from rrt_tpu_torch.scenes import CBOX_SPHERES
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
 from test_torch_hostmods import jax_config
 
@@ -230,48 +230,15 @@ def test_hole_grads_of_normal_render_match_jax():
     leaves = _hole_leaves(tbh)
     tp = tp.replace(bh_position=leaves[0], bh_radius=leaves[1],
                     bh_delta_theta=leaves[2])
-    img = diff.render_radiance(tp, ts, tbh, trays, cfg,
-                               torch.Generator().manual_seed(0))
+    img = diff.render_radiance(tp, ts, tbh, trays, cfg, prng.key(0))
     loss = torch.sum(img * torch.tensor(w))
     _assert_hole_grads(torch.autograd.grad(loss, leaves), jg, HOLE_RTOL)
-
-
-def _gi_uniforms(key, n, ns):
-    """The uniforms the JAX package's depth-2 global-illumination estimate
-    draws from `key` with one area light, in the port's draw order
-    (rrt_tpu/render/integrator.py:319-321, 277, 296, 345; bsdf.py:184-227;
-    the NEE as in `_direct_uniforms`)."""
-    def nee(k):
-        out = []
-        for _ in range(ns):
-            k, kk = jax.random.split(k)
-            out.append(np.asarray(jax.random.uniform(kk, (n, 2), jnp.float32)))
-        return out
-    key, k0 = jax.random.split(key)
-    k_nee, _, k_bsdf = jax.random.split(k0, 3)
-    k1, k2, k3 = jax.random.split(k_bsdf, 3)
-    _, k_last = jax.random.split(key)
-    return (nee(k_nee)
-            + [np.asarray(jax.random.uniform(k, shape, jnp.float32))
-               for k, shape in ((k1, (n, 2)), (k2, (n, 2)), (k3, (n,)))]
-            + nee(jax.random.split(k_last, 3)[0]))
-
-
-def _handed(monkeypatch, draws):
-    """The port's integrator draws `draws` in order."""
-    draws = iter(draws)
-
-    def handed(gen, shape, like):
-        xi = torch.tensor(next(draws))
-        assert tuple(xi.shape) == tuple(shape)
-        return xi
-    monkeypatch.setattr(integrator, "_uniform", handed)
 
 
 def test_hole_grads_of_gi_render_match_jax(monkeypatch):
     """d/d(hole) of a weighted sum of a curved depth-2 global-illumination
     render (the radius loop's integrator: NEE, a BSDF bounce, NEE), both
-    packages on the same uniforms, rays on the box. Weighted are the lanes
+    packages under key 5, rays on the box. Weighted are the lanes
     whose radiance agrees between the packages (a shadow ray or a hit can
     round the other way) and whose replayed traces are calm up to their
     hits."""
@@ -287,7 +254,6 @@ def test_hole_grads_of_gi_render_match_jax(monkeypatch):
             js, jbh, jrays, jcfg, key),
         jp.bh_position, jp.bh_radius, jp.bh_delta_theta)
 
-    _handed(monkeypatch, _gi_uniforms(key, n, cfg.ns_area_light))
     replayed = []
 
     def recorded(scene, bh, rays, **kw):
@@ -299,7 +265,7 @@ def test_hole_grads_of_gi_render_match_jax(monkeypatch):
     leaves = _hole_leaves(tbh)
     tp = tp.replace(bh_position=leaves[0], bh_radius=leaves[1],
                     bh_delta_theta=leaves[2])
-    img = diff.render_radiance(tp, ts, tbh, trays, cfg, None)
+    img = diff.render_radiance(tp, ts, tbh, trays, cfg, prng.key(5))
 
     jimg = np.asarray(jimg)
     calm = np.isclose(img.detach().numpy(), jimg, rtol=1e-4,
@@ -331,25 +297,10 @@ def _emissive(js):
         emission=b.emission.at[row].set(2.0))), row
 
 
-def _direct_uniforms(key, n, cfg, n_lights):
-    """The uniforms the JAX package's Illum.DIRECT estimate draws from
-    `key`, in the port's draw order (rrt_tpu/render/integrator.py:252-253,
-    115-117, 194; rrt_tpu/render/lights.py:108)."""
-    _, k = jax.random.split(key)
-    if cfg.direct_hemisphere_sample:
-        num = n_lights * cfg.ns_area_light
-        return [np.asarray(jax.random.uniform(k, (num, n, 2), jnp.float32))]
-    out = []
-    for _ in range(cfg.ns_area_light):
-        k, kk = jax.random.split(k)
-        out.append(np.asarray(jax.random.uniform(kk, (n, 2), jnp.float32)))
-    return out
-
-
 @pytest.mark.parametrize("hemi", [False, True], ids=["importance", "hemi"])
-def test_material_grads_of_direct_render_match_jax(hemi, monkeypatch):
+def test_material_grads_of_direct_render_match_jax(hemi):
     """d/d(reflectance, emission, light radiance) of a weighted sum of a
-    flat Illum.DIRECT render, both packages on the same uniforms."""
+    flat Illum.DIRECT render, both packages under key 5."""
     js, jbh, jrays, ts, tbh, trays, cfg = _setup(
         curved=False, illum=Illum.DIRECT, direct_hemisphere_sample=hemi,
         ns_area_light=4 if hemi else 2)
@@ -363,11 +314,10 @@ def test_material_grads_of_direct_render_match_jax(hemi, monkeypatch):
     jg = jax.grad(lambda p: jnp.sum(jdiff.render_radiance(
         p, js, None, jrays, jcfg, key) * w))(jp)
 
-    _handed(monkeypatch, _direct_uniforms(key, n, cfg, 1))
     tp = diff.params_from_arrays(convert.to_arrays(jp), "cpu")
     leaves = [x.detach().requires_grad_(True) for x in tp.leaves()]
     img = diff.render_radiance(diff.SceneParams.from_leaves(leaves), ts,
-                               None, trays, cfg, None)
+                               None, trays, cfg, prng.key(5))
     grads = torch.autograd.grad(torch.sum(img * torch.tensor(w)), leaves,
                                 allow_unused=True)
     tg = diff.SceneParams.from_leaves(grads)

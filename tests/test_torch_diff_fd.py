@@ -2,8 +2,8 @@
 differences (the analogs of tests/test_diff.py), an SGD step, gradient
 finiteness at image scale, and the kernel's counters on the path.
 
-A loss evaluated twice with "the same key" takes a fresh generator with
-the same seed each time, so that finite differences see one objective.
+A loss evaluated twice under the same threefry key draws the same
+uniforms, so that finite differences see one objective.
 """
 from types import SimpleNamespace
 
@@ -17,6 +17,7 @@ from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
 from rrt_tpu_torch.types import (BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET,
                                  BSDF_MIRROR)
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import BlackHoleConfig, RenderConfig
 from rrt_tpu_torch.utils.profile import range_ops, split_device_time
 
@@ -38,7 +39,7 @@ def _setup(curved, md=2, n=24, **kw):
 def _mean_radiance(scene, bh, cfg, rays, seed=1):
     def f(params):
         return torch.mean(diff.render_radiance(
-            params, scene, bh, rays, cfg, torch.Generator().manual_seed(seed)))
+            params, scene, bh, rays, cfg, prng.key(seed)))
     return f
 
 
@@ -115,7 +116,7 @@ def test_grad_bh_radius_sign_matches_fd():
 def test_train_step_reduces_loss():
     scene, bh, cfg, rays, params = _setup(curved=False, md=1)
     target = torch.full((rays.o.shape[0], 3), 0.3)
-    gen = lambda: torch.Generator().manual_seed(0)
+    gen = lambda: prng.key(0)
     with torch.no_grad():
         loss0 = float(diff.image_loss(params, scene, bh, rays, target, cfg,
                                       gen()))
@@ -177,7 +178,7 @@ def test_image_scale_grads_finite_and_counted(kind, size):
     leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
     img, work = diff.render_radiance(
         diff.SceneParams.from_leaves(leaves), scene, bh, rays, cfg,
-        torch.Generator().manual_seed(0), with_work=True)
+        prng.key(0), with_work=True)
     grads = torch.autograd.grad(torch.mean(img ** 2), leaves,
                                 allow_unused=True)
     for f, g in zip(diff.SceneParams.__dataclass_fields__, grads):

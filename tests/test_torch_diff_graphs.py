@@ -6,15 +6,13 @@ row that every evaluation writes on the device
 
 The CPU has no CUDA graphs, so the step runs under the stand-in for the
 graph of tests/test_torch_graphs.py (the `stand_in` fixture: the warm-up
-runs the step, the "capture" runs it and puts its output buffers and
-generator back, a replay runs it again without the Python launcher's
+runs the step, the "capture" runs it and puts its output buffers back,
+a replay runs it again without the Python launcher's
 count). At 24×16 with `-m 2` and `-l 1`: the curved global-illumination
 estimate of config 4's radius loop and the flat direct-lit estimate of
 its albedo loop. The `cuda`-marked twin in tests/test_torch_kernel_cuda.py
 holds the real graph to the eager step bit for bit on a card.
 """
-import itertools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,14 +26,14 @@ from rrt_tpu_torch import convert
 from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.parallel.sharding import LaneMesh
 from rrt_tpu_torch.render import diff, integrator
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.render.renderer import make_black_hole
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
 from rrt_tpu_torch.tools.inverse import RADIUS_FRAME, pixel_rays
 from rrt_tpu_torch.types import Rays
 from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
-from test_torch_diff import (HOLE_RTOL, MATERIAL_RTOL, _calm_hits,
-                             _direct_uniforms, _gi_uniforms)
+from test_torch_diff import HOLE_RTOL, MATERIAL_RTOL, _calm_hits
 from test_torch_graphs import stand_in  # noqa: F401  (the graph stand-in)
 from test_torch_hostmods import jax_config
 
@@ -65,8 +63,8 @@ def _problem(case):
             pixel_rays(cam, W, H, "cpu", RADIUS_FRAME), cfg)
 
 
-def _gen(seed):
-    return torch.Generator().manual_seed(seed)
+def _key(seed):
+    return prng.key(seed)
 
 
 def _step(scene, bh, cfg, rays, target, **kw):
@@ -90,15 +88,14 @@ def _same(a, b):
 @pytest.mark.parametrize("case", list(CASES))
 def test_compiled_step_equals_eager(stand_in, case):
     """Four steps of the compiled step (eager warm-up, capture and replay,
-    two replays), with the radius and the reflectance moved and a new seed
+    two replays), with the radius and the reflectance moved and a new key
     at each, new rays handed to the third and a new target to the fourth,
-    against the eager `loss_and_grad`: loss and all eleven
-    gradient leaves equal bit for bit, and the caller's generator left
-    where the eager step leaves it. The kernel's runs equal the step's
-    trace calls at every step; only the warm-up launches through Python."""
+    against the eager `loss_and_grad`: loss and all eleven gradient leaves
+    equal bit for bit. The kernel's runs equal the step's trace calls at
+    every step; only the warm-up launches through Python."""
     params, scene, bh, rays, cfg = _problem(case)
     with torch.no_grad():
-        target = diff.render_radiance(params, scene, bh, rays, cfg, _gen(9))
+        target = diff.render_radiance(params, scene, bh, rays, cfg, _key(9))
     step = _step(scene, bh, cfg, rays, target)
     for i in range(4):
         p, kw = _moved(params, i), {}
@@ -106,12 +103,10 @@ def test_compiled_step_equals_eager(stand_in, case):
             rays = kw["rays"] = rays.replace(o=rays.o + 0.01)
         if i == 3:
             target = kw["target"] = target * 0.5
-        ge, gc = _gen(i), _gen(i)
-        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, ge)
+        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, _key(i))
         tk.reset_counts()
-        got = step(p, gc, **kw)
+        got = step(p, _key(i), **kw)
         assert torch.equal(got[0], want[0]) and _same(got[1], want[1])
-        assert torch.equal(ge.get_state(), gc.get_state())
         assert tk.kernel_runs() == step.trace_calls > 0
         assert tk.LAUNCHES == (step.trace_calls if i == 0 else 0)
     assert step.call.replays == 3
@@ -133,13 +128,14 @@ def _dead_lanes(rays, keep, bh):
 def test_compiled_step_matches_jax_jit_value_and_grad(stand_in, monkeypatch,
                                                      case):
     """The compiled step against the JAX package's
-    `jax.jit(jax.value_and_grad(image_loss))` on the same rays and target,
-    the port handed the uniforms JAX draws from its key at every run of
-    the step: the loss and the material gradients (reflectance, light
-    radiance) to MATERIAL_RTOL, the hole's gradients to HOLE_RTOL (rtol
-    5e-3). In curved space only lanes that are calm up to their hits and
-    whose radiance agrees between the packages are traced (the rule of
-    test_torch_diff.py's GI test): the others end at once in both."""
+    `jax.jit(jax.value_and_grad(image_loss))` on the same rays and target
+    under one key, 5, which the port splits and draws from as the JAX
+    package does at every run of the step: the loss and the material
+    gradients (reflectance, light radiance) to MATERIAL_RTOL, the hole's
+    gradients to HOLE_RTOL (rtol 5e-3). In curved space only lanes that
+    are calm up to their hits and whose radiance agrees between the
+    packages are traced (the rule of test_torch_diff.py's GI test): the
+    others end at once in both."""
     cfg = _cfg(case)
     curved = cfg.black_hole.enabled
     js, jcam = jax_load_scene(CBOX_SPHERES, W, H, fov_mode="native")
@@ -159,16 +155,6 @@ def test_compiled_step_matches_jax_jit_value_and_grad(stand_in, monkeypatch,
     jp = jdiff.params_from_scene(js, jbh)
     tp = diff.params_from_arrays(convert.to_arrays(jp), "cpu")
     jcfg = jax_config(cfg)
-    draws = (_gi_uniforms(key, n, cfg.ns_area_light) if curved
-             else _direct_uniforms(key, n, cfg, 1))
-    shared = itertools.cycle(draws)     # one set for every run of the step
-
-    def handed(gen, shape, like):
-        xi = torch.tensor(next(shared))
-        assert tuple(xi.shape) == tuple(shape)
-        return xi
-    monkeypatch.setattr(integrator, "_uniform", handed)
-
     if curved:
         replayed = []
         trace_diff = integrator.tracer.trace_diff
@@ -178,7 +164,7 @@ def test_compiled_step_matches_jax_jit_value_and_grad(stand_in, monkeypatch,
             return trace_diff(scene, bh, rays, **kw)
         monkeypatch.setattr(integrator.tracer, "trace_diff", recorded)
         with torch.no_grad():
-            img = diff.render_radiance(tp, ts, tbh, trays, cfg, None)
+            img = diff.render_radiance(tp, ts, tbh, trays, cfg, _key(5))
         monkeypatch.setattr(integrator.tracer, "trace_diff", trace_diff)
         jimg = np.asarray(jax.jit(lambda p: jdiff.render_radiance(
             p, js, jbh, jrays, jcfg, key))(jp))
@@ -197,7 +183,7 @@ def test_compiled_step_matches_jax_jit_value_and_grad(stand_in, monkeypatch,
         p, js, jbh, jrays, jnp.asarray(target), jcfg, key)))(jp)
     step = _step(ts, tbh, cfg, trays, torch.tensor(target))
     for _ in range(2):                   # eager, then captured and replayed
-        loss, g = step(tp, _gen(0))
+        loss, g = step(tp, _key(5))
     assert step.call.replays == 1
     np.testing.assert_allclose(float(loss), float(jloss), rtol=MATERIAL_RTOL)
     names = ("reflectance", "light_radiance") + (HOLE if curved else ())
@@ -240,14 +226,14 @@ def test_compiled_train_step_lowers_the_loss(stand_in):
     target = torch.full((rays.o.shape[0], 3), 0.3)
     with torch.no_grad():
         loss0 = float(diff.image_loss(params, scene, bh, rays, target, cfg,
-                                      _gen(0)))
+                                      _key(0)))
     step = _step(scene, bh, cfg, rays, target)
     pe = pc = params
     for _ in range(5):
         pe, _, le = diff.train_step(pe, None, scene, bh, rays, target, cfg,
-                                    _gen(0), lr=0.5)
+                                    _key(0), lr=0.5)
         pc, state, lc = diff.train_step(pc, "state", scene, bh, rays,
-                                        target, cfg, _gen(0), lr=0.5,
+                                        target, cfg, _key(0), lr=0.5,
                                         step=step)
         assert state == "state" and torch.equal(lc, le) and _same(pc, pe)
     assert float(lc) < loss0
@@ -255,7 +241,7 @@ def test_compiled_train_step_lowers_the_loss(stand_in):
     assert step.call.replays == 4
     with pytest.raises(ValueError, match="another scene, hole, config"):
         diff.train_step(pc, None, scene, bh, rays, target,
-                        cfg.replace(ns_area_light=2), _gen(0), step=step)
+                        cfg.replace(ns_area_light=2), _key(0), step=step)
 
 
 def test_graphs_refused_with_a_mesh_and_on_the_cpu():
@@ -272,8 +258,8 @@ def test_graphs_refused_with_a_mesh_and_on_the_cpu():
             diff.LossAndGrad(scene, bh, cfg, rays, target, graphs=True, **kw)
     for kw in (dict(), dict(mesh=mesh)):
         step = diff.LossAndGrad(scene, bh, cfg, rays, target, **kw)
-        got = step(params, _gen(1))
+        got = step(params, _key(1))
         want = diff.loss_and_grad(params, scene, bh, rays, target, cfg,
-                                  _gen(1), **kw)
+                                  _key(1), **kw)
         assert not step.graphs and step.call is None
         assert torch.equal(got[0], want[0]) and _same(got[1], want[1])

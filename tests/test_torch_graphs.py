@@ -5,19 +5,20 @@ Kerr batch, rrt_tpu/render/kerr_scene.py:186).
 
 The CPU has no CUDA graphs, so a stand-in takes the graph's place: the
 warm-up runs the function, the "capture" runs it as a capture records it
-(its Python runs, launches nothing) and puts every buffer and the
-registered generators back, since a capture changes none, and a replay runs it again on the same arguments
+(its Python runs, launches nothing) and puts every buffer back, since a
+capture changes none, and a replay runs it again on the same arguments
 without the Python launcher's count or the collectives' count. The plain traversal stands in for the
 kernel: an eager call adds one to `LAUNCHES`, and every run outside the
 capture, replays included, one to the stand-in's `kernel_runs`. What the stand-in
 checks is what a replay depends on: that a pass reads everything that
-changes between passes from its runner's tensors and generator. The
+changes between passes from its runner's tensors, its key included. The
 `cuda`-marked twins in tests/test_torch_kernel_cuda.py hold the real
 graphs to the eager path bit for bit on a card.
 """
 import math
 from types import SimpleNamespace
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -30,8 +31,8 @@ from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.parallel.distributed import COLLECTIVES
 from rrt_tpu_torch.parallel.sharding import batch_sharding, make_mesh
 from rrt_tpu_torch.render import kerr_scene as K
-from rrt_tpu_torch.render.renderer import (PassRunner, Renderer,
-                                           pass_generator, pass_seed)
+from rrt_tpu_torch.render import renderer as renderer_mod
+from rrt_tpu_torch.render.renderer import PassRunner, Renderer
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
 from rrt_tpu_torch.utils import profile
@@ -79,7 +80,6 @@ def stand_in(monkeypatch):
     def capture(self, *args):
         bufs = _buffers(args)
         saved = [b.clone() for b in bufs]
-        states = [g.get_state() for g in self.generators]
         mode.update(capturing=True)
         try:
             self.result = self.fn(*args)
@@ -87,8 +87,6 @@ def stand_in(monkeypatch):
             mode.update(capturing=False)
         for b, v in zip(bufs, saved):
             b.copy_(v)
-        for g, st in zip(self.generators, states):
-            g.set_state(st)
         return StandInGraph(self.fn, args, mode)
 
     monkeypatch.setattr(CapturedCall, "_warm_up",
@@ -136,17 +134,34 @@ def _equal(a, b):
                                     for x, y in zip(a, b))
 
 
-def test_reseeded_generator_draws_as_a_fresh_one():
-    """The runner's generator, re-seeded with `pass_seed` before each pass
-    whatever it drew before, draws what the pass's fresh generator draws,
-    in the pass's order and shapes."""
-    gen = torch.Generator()
-    for s in (0, 4, 8, 4, 0):
-        fresh = pass_generator(7, s, 0, "cpu")
-        gen.manual_seed(pass_seed(7, s, 0))
-        for shape in ((W * H, 2), (3, W * H), (W * H,), (2, W * H, 2)):
-            assert torch.equal(torch.rand(shape, generator=gen),
-                               torch.rand(shape, generator=fresh))
+def test_device_pass_key_is_the_jax_pass_key(stand_in, monkeypatch):
+    """The key every pass derives from its runner's tensors (the render's
+    key in `base`, the pass's first sample in `sample_idx`), in the eager
+    pass, the capture and the replays alike, is the JAX package's pass
+    key fold_in(fold_in(key(seed), s), 0) (rrt_tpu/render/renderer.py:
+    398, 412-413), for every pass of a render and of a second render of
+    another seed through the same runner."""
+    derived = []
+    real = renderer_mod.pass_key
+
+    def recorded(base, sample_idx, band=0):
+        k = real(base, sample_idx, band)
+        derived.append(k.clone())
+        return k
+    monkeypatch.setattr(renderer_mod, "pass_key", recorded)
+    r = _renderer(_cfg(spp=4), graphs=True)       # 4 passes of 1 sample
+    r.render()
+    r.cfg = r.cfg.replace(seed=2**31 - 1)
+    r.render()
+    passes = [(seed, s) for seed in (5, 2**31 - 1) for s in range(4)]
+    # the eager pass, the capture and its replay, then replays
+    runs = [passes[0], passes[1], passes[1]] + passes[2:]
+    assert len(derived) == len(runs)
+    for got, (seed, s) in zip(derived, runs):
+        want = jax.random.fold_in(jax.random.fold_in(jax.random.key(seed),
+                                                     s), 0)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jax.random.key_data(want)))
 
 
 def _tail(r):

@@ -23,7 +23,7 @@ assert "torch" in sys.modules
 """
 
 # modules every import check must reach: the lifecycle's tools, Kerr, the
-# lane-sharded path and the last three tools
+# lane-sharded path, the last three tools and the random streams
 MODULES = ("rrt_tpu_torch.cli", "rrt_tpu_torch.kerr_cli",
            "rrt_tpu_torch.physics.kerr", "rrt_tpu_torch.render.kerr_scene",
            "rrt_tpu_torch.render.renderer", "rrt_tpu_torch.utils.serve",
@@ -33,7 +33,8 @@ MODULES = ("rrt_tpu_torch.cli", "rrt_tpu_torch.kerr_cli",
            "rrt_tpu_torch.parallel.distributed",
            "rrt_tpu_torch.parallel.worker",
            "rrt_tpu_torch.tools.scaling_bench",
-           "rrt_tpu_torch.tools.run_config", "rrt_tpu_torch.tools.kbench")
+           "rrt_tpu_torch.tools.run_config", "rrt_tpu_torch.tools.kbench",
+           "rrt_tpu_torch.utils.prng", "rrt_tpu_torch.ops.threefry")
 
 
 def test_port_never_imports_jax():

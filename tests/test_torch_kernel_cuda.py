@@ -4,8 +4,9 @@ scene; ragged lane counts from spread origins and from one point, masked
 lanes, a scene whose box tables do not fit in shared memory, launches
 back to back, each in the default build and in the builds that fix its
 traversal lane by lane and cooperative), the differentiable trace on the
-kernel's primal against the CPU's, the toolchain probe and the eight cost
-micro-probes; the passes, Kerr's march blocks and the gradient step
+kernel's primal against the CPU's, the toolchain probe, the eight cost
+micro-probes and the threefry kernel (uniforms and keys, in a graph too);
+the passes, Kerr's march blocks and the gradient step
 captured as CUDA graphs against their eager runs, unsharded and sharded
 over an NCCL group of one rank (two graphs around each collective).
 
@@ -26,6 +27,7 @@ from rrt_tpu_torch.scene.build import build_scene, load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES, cbox_dense, uv_sphere_box
 from rrt_tpu_torch.tools import r5prim, trace_modes
 from rrt_tpu_torch.types import BlackHoleParams, Rays
+from rrt_tpu_torch.utils import prng
 
 N_SEG = 63
 # the default build of the trace kernel, and the builds that fix its
@@ -292,6 +294,75 @@ def test_trace_diff_and_grads_match_cpu(device):
                                    atol=5e-3 * b.abs().max().item())
 
 
+THREEFRY_DRAWS = [((1 << 20, 2), None, 1), ((1 << 20, 2), None, 4),
+                  ((1 << 20,), None, 1),
+                  ((1 << 20, 2), (0, 1 << 18, 1 << 19), 4),
+                  ((4, 509, 2), (1, 100, 300), 1), ((7,), None, 3),
+                  ((2 ** 31 + 5,), (0, 2 ** 31 - 995, 2 ** 31 + 5), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,window,n_keys", THREEFRY_DRAWS,
+                         ids=lambda v: str(v))
+def test_threefry_uniform_kernel_matches_plain(device, shape, window,
+                                               n_keys):
+    """The uniform entry against the plain version on the CPU, bit for
+    bit: the main path's jitter, four light samples in one launch, a coin,
+    a rank's quarter of the lanes, a window on a middle axis, an odd draw
+    and a window past 2^31 (64-bit indexing); one launch each."""
+    from rrt_tpu_torch.ops import threefry
+    from rrt_tpu_torch.utils import prng
+    keys = prng.split(prng.key(7, device), n_keys)
+    if n_keys == 1:
+        keys = keys[0]
+    axis, lo, hi = window or (0, 0, shape[0])
+    threefry.reset_counts()
+    got = threefry.uniform(keys, shape, axis, lo, hi)
+    assert threefry.LAUNCHES == 1 and threefry.kernel_runs("uniform") == 1
+    want = threefry.uniform_reference(keys.cpu(), shape, axis, lo, hi)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_threefry_keys_kernel_matches_plain_and_replays(device):
+    """The key entry against the plain version (split, fold_in of an int
+    and of a device tensor, a batch of keys), and a pass's key derived in
+    a CUDA graph from a device tensor: each replay derives and draws from
+    the key of the index the tensor holds, counted by the kernel's runs."""
+    from rrt_tpu_torch.ops import threefry
+    from rrt_tpu_torch.utils import prng
+    from rrt_tpu_torch.utils.graphs import CapturedCall
+    base = prng.key(3, device)
+    idx = torch.zeros((), dtype=torch.int32, device=device)
+    for s in (0, 5, 2 ** 31 - 1):
+        idx.fill_(s)
+        assert torch.equal(prng.fold_in(base, idx).cpu(),
+                           prng.fold_in(base.cpu(), s))
+    assert torch.equal(prng.split(base, 5).cpu(),
+                       prng.split(base.cpu(), 5))
+    batch = prng.split(base, 4)
+    assert torch.equal(prng.split(batch, 3).cpu(),
+                       prng.split(batch.cpu(), 3))
+    out = torch.empty(4096, device=device)
+
+    def draw():
+        k = prng.fold_in(prng.fold_in(base, idx), 0)
+        out.copy_(prng.uniform(prng.split(k, 3)[0], (4096,)))
+    call = CapturedCall(draw, device, name="a pass's draw")
+    threefry.reset_counts()
+    for s in (0, 1, 2, 3):          # eager, captured and replayed, replayed
+        idx.fill_(s)
+        call()
+        want = prng.uniform(prng.split(prng.fold_in(prng.fold_in(
+            base.cpu(), s), 0), 3)[0], (4096,))
+        assert torch.equal(out.cpu(), want), s
+    assert call.replays == 3
+    # 4 runs a call (two fold_in, a split, a uniform), eager launches of
+    # the first call only
+    assert threefry.kernel_runs() == 16
+    assert threefry.LAUNCHES + threefry.KEY_LAUNCHES == 4
+
+
 @pytest.mark.cuda
 def test_probe_kernel_matches_plain(device):
     x = torch.tensor(np.random.default_rng(1).normal(size=tprobe.SHAPE),
@@ -442,10 +513,9 @@ def test_compiled_gradient_step_equals_eager(device):
     """The gradient step captured as a CUDA graph (`diff.LossAndGrad`) at
     64×64 curved global illumination (-l 1, -m 2), over three steps (the
     eager warm-up, the capture and its replay, a replay) with the radius
-    and the reflectance moved and a new seed at each: loss and all eleven
-    gradients equal the eager `loss_and_grad` bit for bit, and the
-    caller's generator is left where the eager step leaves it. The
-    kernel's own count of its runs equals the step's trace calls at every
+    and the reflectance moved and a new key at each: loss and all eleven
+    gradients equal the eager `loss_and_grad` bit for bit. The kernel's
+    own count of its runs equals the step's trace calls at every
     step, and a replayed step launches nothing through Python."""
     from rrt_tpu_torch.render import diff
     from rrt_tpu_torch.render.renderer import make_black_hole
@@ -457,7 +527,7 @@ def test_compiled_gradient_step_equals_eager(device):
     bh = make_black_hole(cfg, device)
     rays = pixel_rays(cam, 64, 64, device, RADIUS_FRAME)
     params = diff.params_from_scene(scene, bh)
-    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    gen = lambda seed: prng.key(seed, device)
     with torch.no_grad():
         target = diff.render_radiance(params, scene, bh, rays, cfg, gen(9))
     step = diff.LossAndGrad(scene, bh, cfg, rays, target)
@@ -465,16 +535,14 @@ def test_compiled_gradient_step_equals_eager(device):
     for i in range(3):
         p = params.replace(bh_radius=params.bh_radius + 0.004 * i,
                            reflectance=params.reflectance * (1 - 0.05 * i))
-        ge, gc = gen(i), gen(i)
-        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, ge)
+        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, gen(i))
         tk.reset_counts()
-        got = step(p, gc)
+        got = step(p, gen(i))
         assert tk.kernel_runs() == step.trace_calls > 0
         assert tk.LAUNCHES == (step.trace_calls if i == 0 else 0)
         assert torch.equal(got[0], want[0])
         for a, b in zip(got[1].leaves(), want[1].leaves()):
             assert torch.equal(a, b)
-        assert torch.equal(ge.get_state(), gc.get_state())
     assert step.call.replays == 2
     assert want[1].bh_radius.abs() > 0
 
@@ -591,9 +659,8 @@ def test_sharded_gradient_step_equals_eager(device, nccl1):
     """`LossAndGrad(mesh=)` over an NCCL group of one rank, half A and
     half B captured as CUDA graphs with the all-reduce between them, at
     64×64 curved global illumination (-l 1, -m 2) over three calls with
-    moved params and a new seed each: the loss and all eleven gradients
-    equal the eager `loss_and_grad(mesh=)` bit for bit, the caller's
-    generator is left where the eager step leaves it, the kernel's runs
+    moved params and a new key each: the loss and all eleven gradients
+    equal the eager `loss_and_grad(mesh=)` bit for bit, the kernel's runs
     equal the trace calls and a replayed step launches nothing through
     Python."""
     from rrt_tpu_torch.render import diff
@@ -606,24 +673,22 @@ def test_sharded_gradient_step_equals_eager(device, nccl1):
     bh = make_black_hole(cfg, device)
     rays = pixel_rays(cam, 64, 64, device, RADIUS_FRAME)
     params = diff.params_from_scene(scene, bh)
-    gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
+    gen = lambda seed: prng.key(seed, device)
     target = torch.full_like(rays.o, 0.2)
     step = diff.LossAndGrad(scene, bh, cfg, rays, target, mesh=nccl1)
     assert step.graphs
     for i in range(3):
         p = params.replace(bh_radius=params.bh_radius + 0.004 * i,
                            reflectance=params.reflectance * (1 - 0.05 * i))
-        ge, gc = gen(i), gen(i)
-        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, ge,
+        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, gen(i),
                                   mesh=nccl1)
         tk.reset_counts()
-        got = step(p, gc)
+        got = step(p, gen(i))
         assert tk.kernel_runs() == step.trace_calls > 0
         assert tk.LAUNCHES == (step.trace_calls if i == 0 else 0)
         assert torch.equal(got[0], want[0])
         for a, b in zip(got[1].leaves(), want[1].leaves()):
             assert torch.equal(a, b)
-        assert torch.equal(ge.get_state(), gc.get_state())
     assert step.call.replays == step.update.replays == 2
     assert want[1].bh_radius.abs() > 0
 

@@ -33,9 +33,9 @@ from rrt_tpu_torch.parallel import distributed as pdist
 from rrt_tpu_torch.parallel.worker import forward_setup
 from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
 from rrt_tpu_torch.render.integrator import Forward, est_radiance
-from rrt_tpu_torch.render.renderer import (make_black_hole, pass_generator,
-                                           pass_seed)
+from rrt_tpu_torch.render.renderer import make_black_hole
 from rrt_tpu_torch.tools import scaling_bench
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import BlackHoleConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall
 from test_torch_graphs import stand_in  # noqa: F401  (the graph stand-in)
@@ -43,7 +43,7 @@ from test_torch_parallel import HIT_FIELDS, N_SEG, cbox  # noqa: F401
 from test_torch_sharded_graphs import world1  # noqa: F401
 
 SIZE = 16
-SEED = pass_seed(0, 0, 0)
+KEY = prng.key(0)      # the JAX scaling tool's key
 
 
 def _problem(curved: bool):
@@ -76,11 +76,9 @@ def test_compiled_per_trace_forward_equals_eager_and_unsharded(
     problem = _problem(curved)
     scene, bh, rays, cfg, tab = problem
     pdist.COLLECTIVES.update(calls=0, bytes=0)
-    want = est_radiance(scene, bh, rays, cfg, pass_generator(0, 0, 0, "cpu"),
-                        tab, mesh=world1)
+    want = est_radiance(scene, bh, rays, cfg, KEY, tab, mesh=world1)
     eager = dict(pdist.COLLECTIVES)
-    plain = est_radiance(scene, bh, rays, cfg, pass_generator(0, 0, 0, "cpu"),
-                         tab)
+    plain = est_radiance(scene, bh, rays, cfg, KEY, tab)
     assert torch.equal(want[0], plain[0]) and want[0].abs().sum() > 0
     assert torch.equal(want[1].tests, plain[1].tests)
     assert eager["calls"] == 2 * want[1].calls and eager["bytes"] > 0
@@ -88,7 +86,7 @@ def test_compiled_per_trace_forward_equals_eager_and_unsharded(
     for i in range(4):
         tk.reset_counts()
         pdist.COLLECTIVES.update(calls=0, bytes=0)
-        L, work = f(SEED)
+        L, work = f(KEY)
         assert torch.equal(L, want[0]) and torch.equal(work.tests,
                                                        want[1].tests), i
         assert work.calls == want[1].calls
@@ -96,6 +94,24 @@ def test_compiled_per_trace_forward_equals_eager_and_unsharded(
         assert tk.LAUNCHES == (work.calls if i == 0 else 0)
         assert pdist.COLLECTIVES == eager, i
     assert f.call.replays == 3 and f.call.collectives == eager
+
+
+def test_a_dropped_forward_is_freed_at_once(stand_in, world1):
+    """A forward and its call hold no reference cycle, so dropping the
+    last reference frees them (a graph's NCCL work included) before the
+    process group goes, without waiting for the cycle collector."""
+    import gc
+    import weakref
+    f = _compiled(_problem(False), world1)
+    for _ in range(2):                    # eager, then captured
+        f(KEY)
+    refs = [weakref.ref(f), weakref.ref(f.fn), weakref.ref(f.call)]
+    gc.disable()
+    try:
+        del f
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
 
 
 def test_a_gloo_collective_in_a_capture_raises(stand_in, world1,
@@ -125,10 +141,10 @@ def test_a_gloo_collective_in_a_capture_raises(stand_in, world1,
     with pytest.raises(ValueError, match="CUDA graphs need a CUDA device"):
         Forward(*problem, mesh=world1, graphs=True)
     f = _compiled(problem, world1)
-    f(SEED)                                  # eager
+    f(KEY)                                  # eager
     pdist.COLLECTIVES.update(calls=0, bytes=0)
     with pytest.raises(RuntimeError) as err:
-        f(SEED)
+        f(KEY)
     msg = str(err.value)
     assert msg.startswith("capturing the per-trace sharded forward as a "
                           "CUDA graph failed at rrt_tpu_torch/parallel/"

@@ -5,7 +5,7 @@ The block split and the padding are held to JAX's `P("batch")` blocks on
 conftest's 8 virtual devices; the sharded trace, run rank by rank, to the
 unsharded trace bit for bit and to JAX's `trace(mesh=)` under the parity
 rules (ROADMAP.md: flat hit and prim exact, p to atol 2e-4; curved calm
-lanes exact, ≥ 99.5% of all); windowed draws to the whole draw; and, in a
+lanes exact, ≥ 99.5% of all); windowed draws to JAX's whole draw; and, in a
 gloo world of 1, `trace`/`occluded(mesh=)`, `est_radiance(mesh=)` and
 `Renderer(sharding=)` to their unsharded results bit for bit.
 """
@@ -28,12 +28,12 @@ from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.parallel import distributed as pdist
 from rrt_tpu_torch.parallel import sharding as sh
 from rrt_tpu_torch.physics.schwarzschild import chaotic_lanes
-from rrt_tpu_torch.render.integrator import est_radiance
-from rrt_tpu_torch.render.renderer import (Renderer, make_black_hole,
-                                           pass_generator)
+from rrt_tpu_torch.render.integrator import est_radiance, lane_uniform
+from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
 from rrt_tpu_torch.types import Hit, Rays
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import RenderConfig
 
 N_SEG = 63
@@ -164,29 +164,27 @@ SHAPES = [((509, 2), 0), ((509,), 0), ((4, 509, 2), 1), ((1, 509, 2), 1)]
 
 @pytest.mark.parametrize("shape,axis", SHAPES)
 def test_window_draws_tile_the_whole_draw(shape, axis):
-    """Every shape `_uniform` and the camera draw (jitter, lens,
+    """Every shape the integrator and the camera draw (jitter, lens,
     light samples, roulette, BSDF; the hemisphere draw's lanes on axis
-    1): the blocks of 3 ranks' windows put together equal the whole draw
-    bit for bit; a plain generator draws what torch.rand draws."""
+    1): the blocks of 3 ranks' windows (`prng.uniform(window=)`, as
+    `integrator.lane_uniform` asks for them) put together equal the whole
+    draw of `jax.random.uniform` bit for bit, and so does the draw
+    without a window; a lane axis of another width than the lanes'
+    raises."""
     n = shape[axis]
-    g = torch.Generator().manual_seed(5)
-    assert sh.on_axis(g, axis) is g
-    whole = sh.lane_rand(g, shape, "cpu")
-    assert torch.equal(whole, torch.rand(
-        shape, generator=torch.Generator().manual_seed(5)))
+    key = prng.key(5)
+    whole = np.asarray(jax.random.uniform(jax.random.key(5), shape))
+    assert np.array_equal(prng.uniform(key, shape).numpy(), whole)
     parts = []
     for rank in range(3):
         lo, hi = sh.shard_bounds(n, rank, 3)
         lo, hi = min(lo, n), min(hi, n)
-        w = sh.on_axis(sh.LaneWindow(torch.Generator().manual_seed(5), lo,
-                                     hi, n), axis)
         local = list(shape)
         local[axis] = hi - lo
-        parts.append(sh.lane_rand(w, tuple(local), "cpu"))
-    assert torch.equal(torch.cat(parts, dim=axis), whole)
+        parts.append(lane_uniform(key, tuple(local), (lo, hi, n), axis))
+    assert np.array_equal(torch.cat(parts, dim=axis).numpy(), whole)
     with pytest.raises(ValueError):
-        sh.lane_rand(sh.LaneWindow(torch.Generator(), 0, 3, n, axis), shape,
-                     "cpu")
+        lane_uniform(key, shape, (0, 3, n), axis)
 
 
 def test_mesh_without_a_group():
@@ -282,10 +280,9 @@ def test_est_radiance_with_mesh(world1, small):
     tab = tk.build_tables(scene, bh)
     xy = np.random.default_rng(1).uniform(0.1, 0.9, (101, 2))
     rays = cam.generate_rays(torch.tensor(xy, dtype=torch.float32))
-    L, w = est_radiance(scene, bh, rays, cfg, pass_generator(3, 0, 0, "cpu"),
-                        tab)
-    Lm, wm = est_radiance(scene, bh, rays, cfg,
-                          pass_generator(3, 0, 0, "cpu"), tab, mesh=world1)
+    L, w = est_radiance(scene, bh, rays, cfg, prng.key(3), tab)
+    Lm, wm = est_radiance(scene, bh, rays, cfg, prng.key(3), tab,
+                          mesh=world1)
     assert torch.equal(Lm, L) and L.abs().sum() > 0
     assert torch.equal(wm.tests, w.tests) and wm.calls == w.calls
 

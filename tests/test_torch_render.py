@@ -86,8 +86,11 @@ def _mean_and_sigma(acc):
 
 def test_global_illumination_matches_jax():
     """Illum.FULL at 24×24, 8 spp, -l 1, -m 3: the image-mean luminances
-    of the two packages (different random numbers, same estimator) differ
-    by at most 4σ."""
+    of the two packages differ by at most 4σ. Both draw the same uniforms
+    from the seed; in curved space a few flipped shadow rays still move
+    the mean by more than the per-pixel rule's 1e-3, so the mean is held
+    statistically (tests/test_torch_curved_parity.py holds this render's
+    paths and a 1-spp render pixel by pixel)."""
     js, jcam, ts, tcam = _scenes()
     cfg = RenderConfig(width=24, height=24, ns_aa=8, ns_area_light=1,
                        max_ray_depth=3, illum=Illum.FULL, seed=3,

@@ -17,7 +17,6 @@ virtual CPU mesh, through two gloo ranks in two processes. The
 `cuda`-marked twins in tests/test_torch_kernel_cuda.py hold the real
 graphs to the eager sharded paths on a card.
 """
-import itertools
 import os
 import subprocess
 import sys
@@ -37,13 +36,14 @@ from rrt_tpu_torch import convert
 from rrt_tpu_torch.ops import trace_kernel as tk
 from rrt_tpu_torch.parallel import distributed as pdist
 from rrt_tpu_torch.parallel import sharding as sh
-from rrt_tpu_torch.render import diff, integrator
+from rrt_tpu_torch.render import diff
 from rrt_tpu_torch.render.renderer import Renderer
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
 from rrt_tpu_torch.types import Rays
+from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
-from test_torch_diff import MATERIAL_RTOL, _direct_uniforms
+from test_torch_diff import MATERIAL_RTOL
 from test_torch_diff_graphs import _moved, _problem, _same
 from test_torch_graphs import H, W, _cfg, _equal, _renderer, _state
 from test_torch_graphs import stand_in  # noqa: F401  (the graph stand-in)
@@ -133,26 +133,24 @@ def test_split_pass_equals_the_fused_pass(stand_in, world1, scenario):
 def test_split_step_equals_the_eager_sharded_step(stand_in, world1, case):
     """`LossAndGrad(mesh=)` split at its all-reduce, half A and half B
     through the stand-in's graphs and the all-reduce eagerly between them,
-    over three calls with moved params and a new seed each: the loss and
-    the eleven gradients equal `loss_and_grad(mesh=)` bit for bit, the
-    caller's generator is left where the eager step leaves it, one
+    over three calls with moved params and a new key each: the loss and
+    the eleven gradients equal `loss_and_grad(mesh=)` bit for bit, one
     all-reduce a call; then its `train_step` equals `train_step(mesh=)`."""
     params, scene, bh, rays, cfg = _problem(case)
     target = torch.full((rays.o.shape[0], 3), 0.2)
     step = diff.LossAndGrad(scene, bh, cfg, rays, target, mesh=world1)
     step.graphs = True
-    gen = lambda i: torch.Generator().manual_seed(i)
+    gen = prng.key
     for i in range(3):
-        p, ge, gc = _moved(params, i), gen(i), gen(i)
-        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, ge,
+        p = _moved(params, i)
+        want = diff.loss_and_grad(p, scene, bh, rays, target, cfg, gen(i),
                                   mesh=world1)
         tk.reset_counts()
         pdist.COLLECTIVES.update(calls=0, bytes=0)
-        got = step(p, gc)
+        got = step(p, gen(i))
         assert pdist.COLLECTIVES["calls"] == 1
         assert pdist.COLLECTIVES["bytes"] == 4 * step.flat.numel()
         assert torch.equal(got[0], want[0]) and _same(got[1], want[1])
-        assert torch.equal(ge.get_state(), gc.get_state())
         assert tk.kernel_runs() == step.trace_calls > 0
     assert step.call.replays == step.update.replays == 2
     assert any(g.abs().max() > 0 for g in want[1].leaves())
@@ -237,7 +235,7 @@ def test_graphs_with_a_mesh_only_on_a_card(world1):
     params, scene, bh, rays, dcfg = _problem("flat direct")
     step = diff.LossAndGrad(scene, bh, dcfg, rays, torch.zeros_like(rays.o),
                             mesh=world1)
-    step(params, torch.Generator().manual_seed(0))
+    step(params, prng.key(0))
     assert not step.graphs and step.call is None and step.update is None
     from rrt_tpu_torch.render import kerr_scene as K
     kbh = convert.kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, "cpu")
@@ -254,9 +252,9 @@ def test_graphs_with_a_mesh_only_on_a_card(world1):
 LEAVES = ("reflectance", "light_radiance")
 
 def _parity_problem():
-    """The flat direct-lit box at W×H, deterministic given its uniforms:
-    (JAX scene, hole, rays, config; the port's scene, rays, params; the
-    target; the uniforms the JAX package draws from its key)."""
+    """The flat direct-lit box at W×H, deterministic given its key:
+    (JAX scene, hole, rays, config, key; the port's scene, rays, params;
+    the target)."""
     cfg = RenderConfig(width=W, height=H, ns_aa=1, ns_area_light=1,
                        max_ray_depth=1, seed=0, illum=Illum.DIRECT,
                        black_hole=BlackHoleConfig(enabled=False))
@@ -271,35 +269,25 @@ def _parity_problem():
         jdiff.params_from_scene(js, jbh)), "cpu")
     target = np.random.default_rng(3).uniform(0, 0.5, (W * H, 3)).astype(
         np.float32)
-    key = jax.random.key(5)
-    draws = _direct_uniforms(key, W * H, cfg, 1)
-    return (js, jbh, jrays, cfg, key), (ts, trays, tp), target, draws
+    return (js, jbh, jrays, cfg, jax.random.key(5)), (ts, trays, tp), target
 
 
 def _rank(rank: int, store: str, out: str, world: int = 2):
     """One gloo rank of the parity test (of `world` ranks):
-    `LossAndGrad(mesh=)` called twice and `loss_and_grad(mesh=)` once on
-    the shared uniforms (each rank's window of them); writes the step's
-    loss and gradients and whether each call equalled the eager step."""
+    `LossAndGrad(mesh=)` called twice and `loss_and_grad(mesh=)` once
+    under key 5 (each rank drawing its block of the batch's uniforms);
+    writes the step's loss and gradients and whether each call equalled
+    the eager step."""
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=world, rank=rank)
     try:
         mesh = sh.make_mesh("cpu")
-        (_, _, _, cfg, _), (ts, trays, tp), target, draws = _parity_problem()
-        shared = itertools.cycle(draws)
-
-        def handed(gen, shape, like):
-            xi = torch.tensor(next(shared))
-            if isinstance(gen, sh.LaneWindow):
-                xi = xi.narrow(gen.axis, gen.lo, gen.hi - gen.lo)
-            assert tuple(xi.shape) == tuple(shape)
-            return xi
-        integrator._uniform = handed
+        (_, _, _, cfg, _), (ts, trays, tp), target = _parity_problem()
         target = torch.tensor(target)
         step = diff.LossAndGrad(ts, None, cfg, trays, target, mesh=mesh)
-        gen = torch.Generator()
-        got = [step(tp, gen) for _ in range(2)]
-        want = diff.loss_and_grad(tp, ts, None, trays, target, cfg, gen,
+        key = prng.key(5)
+        got = [step(tp, key) for _ in range(2)]
+        want = diff.loss_and_grad(tp, ts, None, trays, target, cfg, key,
                                   mesh=mesh)
         equal = [bool(torch.equal(g[0], want[0]) and _same(g[1], want[1]))
                  for g in got]
@@ -316,8 +304,8 @@ def jax_parity(tmp_path, world: int, threads: int):
     threads each) against the JAX package's
     `jax.jit(jax.value_and_grad(image_loss))` over rays and target sharded
     on a `world`-device virtual CPU mesh (tests/test_sharding.py's
-    `P("batch")`), on the flat direct-lit box with the uniforms JAX draws
-    handed to the port: every rank holds the same loss and gradients, each
+    `P("batch")`), on the flat direct-lit box under one key: every rank
+    holds the same loss and gradients, each
     call equal to the eager `loss_and_grad(mesh=)` bit for bit, and the
     loss and the reflectance and light gradients within MATERIAL_RTOL
     (rtol 1e-4, the material leaves' tolerance of
@@ -334,7 +322,7 @@ def jax_parity(tmp_path, world: int, threads: int):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for i in range(world)]
     try:
-        (js, jbh, jrays, cfg, key), _, target, _ = _parity_problem()
+        (js, jbh, jrays, cfg, key), _, target = _parity_problem()
         mesh = Mesh(np.array(jax.devices()[:world]), ("batch",))
         lanes, whole = NamedSharding(mesh, P("batch")), NamedSharding(
             mesh, P())
