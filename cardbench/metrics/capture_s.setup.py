@@ -1,0 +1,12 @@
+"""Seconds of set-up in the capture of every compiled pass or step as a
+CUDA graph: the program's host spans "setup.capture", each ending in a
+device sync, read in a run whose traced stretch was collected
+(`rrt_tpu_torch.utils.stats`)."""
+
+
+def read(view):
+    try:
+        from rrt_tpu_torch.utils.stats import COLLECTED, HOST
+    except ImportError:        # a program without spans
+        return None
+    return HOST.seconds("setup.capture") if COLLECTED else None

@@ -21,7 +21,8 @@ It prints one JSON line on stdout with the JAX bench's keys where they
 still mean something on this card (`vs_baseline` is gone: its denominator
 was measured on another host; `bunny_camera_rays_per_sec` is
 `bvh_camera_rays_per_sec`, since the scene is not the bunny), after a line
-on stderr with every timed wall (their spread) and the phase timers.
+on stderr with every timed wall (their spread) and each cell's host spans
+(`utils.stats.report`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from rrt_tpu_torch.utils.config import RenderConfig
+from rrt_tpu_torch.utils import stats
 from rrt_tpu_torch.utils.stats import RenderStats
 
 METRIC = "camera_rays_per_sec_curved_gi_256x256_16spp_d5"
@@ -139,11 +141,14 @@ def run(device):
     build.load_library("trace")
     build_seconds = time.perf_counter() - t0
 
+    stats.reset()
     cfg = RenderConfig(**PRIMARY)
     scene, cam = load_scene(CBOX_SPHERES, device, cfg.width, cfg.height)
     r = Renderer(scene, cam, cfg, device)
     hdr, st, walls, calls = _timed_render(r, device)
+    phases = stats.report()
 
+    stats.reset()
     bcfg = RenderConfig(**BVH)
     bscene, bcam = build_scene(cbox_dense(), device, bcfg.width, bcfg.height)
     br = Renderer(bscene, bcam, bcfg, device)
@@ -156,8 +161,8 @@ def run(device):
     diag = (f"# wall={st.wall_seconds:.4f}s (median of {_walls(walls)}) "
             f"bvh_wall={bst.wall_seconds:.4f}s (median of {_walls(bwalls)}) "
             f"mean_radiance={out['mean_radiance']:.4f} device={device} "
-            f"({card}) phases[{r.timer.report()}] "
-            f"bvh_phases[{br.timer.report()}] trace_calls={calls + bcalls}")
+            f"({card}) phases[{phases}] bvh_phases[{stats.report()}] "
+            f"trace_calls={calls + bcalls}")
     return out, diag, calls + bcalls
 
 

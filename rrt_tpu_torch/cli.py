@@ -23,6 +23,7 @@ from rrt_tpu_torch.io.png import write_png
 from rrt_tpu_torch.render.renderer import Renderer
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scene.envmap import build_envmap, probability_debug_image
+from rrt_tpu_torch.utils import stats
 from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
 
 
@@ -205,7 +206,7 @@ def main(argv=None):
         else:
             print(f"\n[PathTracer] Rendering complete, {dt:.2f} sec")
         print(renderer.stats(dt).report())
-        print(f"[PathTracer] Phases: {renderer.timer.report()}")
+        print(f"[PathTracer] Phases: {stats.report()}")
         print(f"[PathTracer] Saved to {args.outfile}")
         if server is not None and args.serve_wait:
             print(f"[PathTracer] Still serving on "

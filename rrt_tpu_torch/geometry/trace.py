@@ -33,6 +33,7 @@ from rrt_tpu_torch.parallel import distributed as pdist
 from rrt_tpu_torch.parallel import sharding as sh
 from rrt_tpu_torch.physics.schwarzschild import grad_guard, micro_step
 from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
+from rrt_tpu_torch.utils import stats
 
 # chords longer than this are wrapped (u ≤ 0 teleport) or about to be
 CHAOS_CHORD = 50.0
@@ -104,9 +105,10 @@ def trace_with_seg(scene: SceneData, bh: Optional[BlackHoleParams],
 
 def _replay(o, d, bh: BlackHoleParams, sgc, n_seg: int):
     """The march of (o, d) replayed under autograd for n_seg chords; each
-    lane's chord number `sgc` gives its (origin, direction). A profiler
-    sees it as the range "trace_diff.replay"."""
-    with torch.profiler.record_function("trace_diff.replay"):
+    lane's chord number `sgc` gives its (origin, direction): the device
+    span "trace_diff.replay" (`utils.stats`), which a profiler sees as a
+    range of that name."""
+    with stats.span("trace_diff.replay", o.device):
         pos, dirn = o, d
         dead = torch.zeros(sgc.shape, dtype=torch.bool, device=sgc.device)
         so, sd = pos, dirn

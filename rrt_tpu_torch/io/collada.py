@@ -32,6 +32,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import xml.etree.ElementTree as ET
 
+from rrt_tpu_torch.utils import stats
+
 
 # ---------------------------------------------------------------- info types
 
@@ -472,6 +474,7 @@ def _instance_material(doc: _Doc, node_el: ET.Element) -> Optional[MaterialInfo]
     return _parse_material(doc, mat_el)
 
 
+@stats.span("setup.scene")
 def load(path: str) -> SceneInfo:
     """Parse a .dae file into a SceneInfo (reference ColladaParser::load)."""
     tree = ET.parse(path)

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Tuple
 
+from rrt_tpu_torch.utils import stats
+
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "rrt_tpu_torch"
@@ -109,6 +111,7 @@ def library_path(family: str = "trace") -> Path:
     return BUILD_DIR / f"lib{fam.name}_{sha.hexdigest()[:16]}.so"
 
 
+@stats.span("setup.kernels")
 def build_all(families: Iterable[str] = tuple(FAMILIES)) -> Dict[str, Path]:
     """Compile every named family whose library of the same hash does not
     exist yet, one nvcc process each, all started together; raise if any

@@ -52,6 +52,7 @@ import torch
 from rrt_tpu_torch.geometry.intersect import build_hit, tri_intersect
 from rrt_tpu_torch.physics.schwarzschild import n_segments
 from rrt_tpu_torch.types import BlackHoleParams, Hit, Rays, SceneData
+from rrt_tpu_torch.utils import stats
 
 BIG = 3e37
 # triangle rows per Morton-contiguous part, and clusters per supercluster:
@@ -144,6 +145,7 @@ def _box_rows(lo, hi, skip=None):
                      dim=1).contiguous()
 
 
+@stats.span("setup.scene")
 def build_tables(scene: SceneData, bh: Optional[BlackHoleParams]
                  ) -> TraceTables:
     """The host side of `pallas_trace_raw` (trace_kernel.py:1674-1791):
@@ -558,6 +560,8 @@ def _check(name, a, dev, shape, table=False):
 
 # where the tables of a launch lived, by the layout code `rrt_trace` reports
 _LAYOUTS = (("shared", "shared"), ("shared", "device"), ("device", "device"))
+# the traversal's device spans, closest hit and any hit
+_SPANS = ("trace.closest", "trace.anyhit")
 _FN = None
 
 
@@ -640,14 +644,16 @@ def _launch(tab: TraceTables, o, d, min_t, max_t, occlusion) -> TraceOut:
     queue = torch.zeros(1, dtype=i32, device=dev)   # the launch's ray queue
     info = (ctypes.c_int * 6)()
     p = lambda a: a.data_ptr()
-    rc = fn(p(o), p(d), p(min_t), p(max_t), n,
-            p(tab.params), p(tab.tri), p(tab.cl), p(tab.sup), p(tab.part),
-            p(tab.sph), tab.n_parts, tab.spp, tab.cs_k, tab.n_live_sph,
-            tab.n_tri_rows, tab.sph.shape[0], tab.n_seg, int(tab.curved),
-            int(occlusion), p(out.hit), p(out.absd), p(out.t), p(out.prim), p(out.seg),
-            p(out.seg_o), p(out.seg_d), p(out.nisect), p(out.ncull),
-            p(queue), p(runs), ctypes.addressof(info), dev.index,
-            torch._C._cuda_getCurrentRawStream(dev.index))
+    with stats.span(_SPANS[bool(occlusion)], dev):
+        rc = fn(p(o), p(d), p(min_t), p(max_t), n,
+                p(tab.params), p(tab.tri), p(tab.cl), p(tab.sup),
+                p(tab.part), p(tab.sph), tab.n_parts, tab.spp, tab.cs_k,
+                tab.n_live_sph, tab.n_tri_rows, tab.sph.shape[0], tab.n_seg,
+                int(tab.curved), int(occlusion), p(out.hit), p(out.absd),
+                p(out.t), p(out.prim), p(out.seg), p(out.seg_o),
+                p(out.seg_d), p(out.nisect), p(out.ncull), p(queue),
+                p(runs), ctypes.addressof(info), dev.index,
+                torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError("trace kernel launch failed: "
                            + err(rc).decode())
@@ -669,9 +675,12 @@ def trace_rays(tab: TraceTables, o, d, min_t, max_t,
     A CPU tensor goes to `trace_rays_reference`. A CUDA tensor goes to the
     hand-written kernel `ops/csrc/trace_kernel.cu`, built on first use;
     anything else raises. Each kernel launch adds one to `LAUNCHES`, and
-    each run of the kernel, replays included, one to `kernel_runs()`."""
+    each run of the kernel, replays included, one to `kernel_runs()`. The
+    traversal is the device span "trace.closest", or "trace.anyhit" with
+    `occlusion` (`utils.stats`)."""
     if o.device.type == "cpu":
-        return trace_rays_reference(tab, o, d, min_t, max_t, occlusion)
+        with stats.span(_SPANS[bool(occlusion)], o.device):
+            return trace_rays_reference(tab, o, d, min_t, max_t, occlusion)
     if o.device.type != "cuda":
         raise ValueError(f"no trace kernel for device {o.device}")
     return _launch(tab, o, d, min_t, max_t, occlusion)

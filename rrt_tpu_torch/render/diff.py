@@ -54,6 +54,7 @@ from rrt_tpu_torch.parallel.sharding import shard_bounds
 from rrt_tpu_torch.physics.schwarzschild import n_segments
 from rrt_tpu_torch.render.integrator import est_radiance
 from rrt_tpu_torch.types import BlackHoleParams, Rays, SceneData, _Tensors
+from rrt_tpu_torch.utils import stats
 from rrt_tpu_torch.utils.config import RenderConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 
@@ -182,12 +183,17 @@ def _local_value_and_grad(leaves, scene, bh, rays, target, cfg, key, mesh,
                           tables):
     """(loss, gradients, trace calls) of `image_loss` at `leaves`, tensors
     that require grad, with `mesh` this rank's share of both (no
-    collective); a leaf the loss does not reach gets a zero gradient."""
-    loss, work = image_loss(SceneParams.from_leaves(leaves), scene, bh,
-                            rays, target, cfg, key, mesh, tables, True)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(leaves, grads)]
+    collective); a leaf the loss does not reach gets a zero gradient. The
+    forward and the loss are the device span "step.forward", the
+    backward pass "step.backward" (`utils.stats`)."""
+    dev = rays.o.device
+    with stats.span("step.forward", dev):
+        loss, work = image_loss(SceneParams.from_leaves(leaves), scene, bh,
+                                rays, target, cfg, key, mesh, tables, True)
+    with stats.span("step.backward", dev):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
     return loss.detach(), grads, work.calls
 
 
@@ -243,8 +249,9 @@ def train_step(params: SceneParams, opt_state, scene: SceneData,
                              "config or mesh")
         return step.train_step(params, opt_state, key, lr, rays, target)
     loss, g = loss_and_grad(params, scene, bh, rays, target, cfg, key, mesh)
-    return SceneParams.from_leaves(_sgd(params.leaves(), g.leaves(), lr)), \
-        opt_state, loss
+    with stats.span("step.update", rays.o.device):
+        new = _sgd(params.leaves(), g.leaves(), lr)
+    return SceneParams.from_leaves(new), opt_state, loss
 
 
 class LossAndGrad:
@@ -310,10 +317,12 @@ class LossAndGrad:
         self.trace_calls = 0      # trace calls of one evaluation
 
     def _write(self, out, loss, grads):
-        """The loss, the gradients and the SGD update into `out`."""
-        for buf, v in zip(out, [loss, *grads,
-                                *_sgd(self.leaves, grads, self.lr)]):
-            buf.copy_(v)
+        """The loss, the gradients and the SGD update into `out`: the
+        device span "step.update"."""
+        with stats.span("step.update", self.scene.device):
+            for buf, v in zip(out, [loss, *grads,
+                                    *_sgd(self.leaves, grads, self.lr)]):
+                buf.copy_(v)
 
     def _run(self, out) -> int:
         """One unsharded step on the static buffers, its results written
@@ -361,6 +370,7 @@ class LossAndGrad:
                  self.out)
         return calls
 
+    @stats.span("step")
     def _step(self, params: SceneParams, key: torch.Tensor, lr,
               rays: Optional[Rays], target: Optional[torch.Tensor]):
         with torch.no_grad():

@@ -52,7 +52,7 @@ from rrt_tpu_torch.scene import envmap as envlib
 from rrt_tpu_torch.types import (LIGHT_ENV, BlackHoleParams, Hit, Rays,
                                  SceneData)
 from rrt_tpu_torch.utils import math3d as m3
-from rrt_tpu_torch.utils import prng
+from rrt_tpu_torch.utils import prng, stats
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
 
@@ -62,14 +62,25 @@ RR_PROB = 0.7  # Russian roulette continue probability (part1_code.cpp:82)
 
 @dataclasses.dataclass
 class TraceWork:
-    """Traversal work of the traces an estimate made: the summed
-    [primitive tests, bbox tests] and the number of trace calls."""
+    """Work of an estimate: the traces' summed [primitive tests, bbox
+    tests], the number of trace calls, the live lanes entering each
+    vertex (0-d float64 tensors, in vertex order) and the lanes its
+    vertices ran (the widths of their batches, summed)."""
 
     tests: torch.Tensor    # (2,) float64
     calls: int = 0
+    live: list = dataclasses.field(default_factory=list)
+    run: int = 0
 
     def __add__(self, other: "TraceWork") -> "TraceWork":
-        return TraceWork(self.tests + other.tests, self.calls + other.calls)
+        return TraceWork(self.tests + other.tests, self.calls + other.calls,
+                         self.live + other.live, self.run + other.run)
+
+    def entering(self, alive: torch.Tensor) -> "TraceWork":
+        """This work with a vertex entered by the lanes `alive`."""
+        return dataclasses.replace(
+            self, live=self.live + [alive.sum(dtype=torch.float64)],
+            run=self.run + alive.numel())
 
 
 def _no_work(device) -> TraceWork:
@@ -253,43 +264,65 @@ def est_radiance(scene: SceneData, bh: Optional[BlackHoleParams],
     (moved to the rays' device). `lanes` = (lo, hi, n): the rays are the
     lanes [lo, hi) of a batch of n, and the draws that block of the
     batch's. With `mesh` every trace runs over its ranks. Returns ((...,
-    3) radiance, TraceWork)."""
-    key = key.to(rays.o.device)
-    hit, work = _trace(scene, bh, tab, rays, cfg, mesh=mesh)
-    L = torch.zeros_like(rays.d)
-    if scene.env is not None:          # along the ORIGINAL direction
-        L = torch.where(hit.hit[..., None], 0.0,
-                        envlib.sample_dir(scene.env, rays.d))
+    3) radiance, TraceWork).
 
-    if cfg.illum == Illum.NORMAL:
-        # normal_shading(isect.n): the raw interpolated normal
-        return torch.where(hit.hit[..., None], hit.n * 0.5 + 0.5, L), work
+    Its device spans (`utils.stats`): "pass.camera_hit" (the camera rays'
+    closest hit and the zero-bounce terms), then at every vertex
+    "vertex.nee" (its keys, the light samples, the shadow rays' any-hit,
+    the BSDF evaluations, the `L` update) and "vertex.bounce" (the rest:
+    the roulette coin, `bsdf.sample`, the bounce's closest hit, β and the
+    emission it picks up); the trace kernel's launches are spans of their
+    own inside them. The lanes alive entering each vertex are counted
+    into the `TraceWork`."""
+    dev = rays.o.device
+    key = key.to(dev)
+    with stats.span("pass.camera_hit", dev):
+        hit, work = _trace(scene, bh, tab, rays, cfg, mesh=mesh)
+        L = torch.zeros_like(rays.d)
+        if scene.env is not None:          # along the ORIGINAL direction
+            L = torch.where(hit.hit[..., None], 0.0,
+                            envlib.sample_dir(scene.env, rays.d))
+
+        if cfg.illum == Illum.NORMAL:
+            # normal_shading(isect.n): the raw interpolated normal
+            return torch.where(hit.hit[..., None], hit.n * 0.5 + 0.5, L), \
+                work
+        if cfg.illum == Illum.FULL:
+            L = L + bsdflib.emission(scene.bsdfs, hit.bsdf_id)  # zero bounce
 
     if cfg.illum == Illum.DIRECT:
-        key, k = prng.split(key)
-        Ld, w = _direct(scene, bh, tab, hit, cfg, k, mesh, lanes)
-        return L + Ld, work + w
+        with stats.span("vertex.nee", dev):
+            work = work.entering(hit.hit)
+            key, k = prng.split(key)
+            Ld, w = _direct(scene, bh, tab, hit, cfg, k, mesh, lanes)
+            return L + Ld, work + w
 
     md = cfg.max_ray_depth
-    if cfg.illum == Illum.FULL:
-        L = L + bsdflib.emission(scene.bsdfs, hit.bsdf_id)   # zero bounce
-        if md == 0:
-            return L, work
-
+    if cfg.illum == Illum.FULL and md == 0:
+        return L, work
     beta = torch.ones_like(rays.d)
     alive = hit.hit
 
     def vertex(L, beta, alive, hit, work, kk, first, do_bounce, rr):
         """One path vertex from its key kk: NEE, then optionally a
         (roulette) bounce."""
-        k_nee, k_coin, k_bsdf = prng.split(kk, 3)
-        delta = bsdflib.is_delta(scene.bsdfs, hit.bsdf_id)
-        if not (first and cfg.illum == Illum.INDIRECT):
-            nee, w = _direct(scene, bh, tab, hit, cfg, k_nee, mesh, lanes)
-            L = L + torch.where((alive & ~delta)[..., None], beta * nee, 0.0)
-            work = work + w
+        with stats.span("vertex.nee", dev):
+            work = work.entering(alive)
+            k_nee, k_coin, k_bsdf = prng.split(kk, 3)
+            delta = bsdflib.is_delta(scene.bsdfs, hit.bsdf_id)
+            if not (first and cfg.illum == Illum.INDIRECT):
+                nee, w = _direct(scene, bh, tab, hit, cfg, k_nee, mesh, lanes)
+                L = L + torch.where((alive & ~delta)[..., None], beta * nee,
+                                    0.0)
+                work = work + w
         if not do_bounce:
             return L, beta, alive, hit, work
+        with stats.span("vertex.bounce", dev):
+            return bounce(L, beta, alive, hit, work, delta, k_coin, k_bsdf,
+                          rr)
+
+    def bounce(L, beta, alive, hit, work, delta, k_coin, k_bsdf, rr):
+        """The vertex's roulette bounce, after its NEE."""
         cont = alive
         if rr:
             cont = cont & (lane_uniform(k_coin, alive.shape, lanes)

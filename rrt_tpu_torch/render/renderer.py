@@ -77,7 +77,8 @@ from rrt_tpu_torch.types import BlackHoleParams, SceneData
 from rrt_tpu_torch.utils import prng
 from rrt_tpu_torch.utils.config import Illum, RenderConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall, run_call
-from rrt_tpu_torch.utils.stats import PhaseTimer, RenderStats
+from rrt_tpu_torch.utils import stats
+from rrt_tpu_torch.utils.stats import RenderStats
 
 
 def make_black_hole(cfg: RenderConfig, device) -> Optional[BlackHoleParams]:
@@ -101,9 +102,12 @@ class PassRunner:
     (rrt_tpu/render/renderer.py:85-123).
 
     Static buffers: the accumulators `acc` = (radiance sum (n,3), s1, s2,
-    count, done) and the trace counters `tests` (2,) f64, which every pass
-    updates in place (the JAX package donates them, `donate_argnums=(0,)`);
-    a render, checkpoint or resume copies into and out of them. Dynamic
+    count, done) and the counters `tests` (4,) f64 (the trace kernel's
+    primitive and bbox tests, then the live lanes entering the
+    integrator's vertices and the lanes those vertices ran), which every
+    pass updates in place (the JAX package donates them,
+    `donate_argnums=(0,)`); a render, checkpoint or resume copies into and
+    out of them. Dynamic
     inputs, device tensors the pass reads: `sample_idx` (the pass's first
     sample), `n_valid` (its live samples; the tail pass has fewer than k)
     and the region origin `x0`, `y0`, so that the tail pass, the cells of
@@ -136,7 +140,7 @@ class PassRunner:
             shape, dtype=dtype, device=device)
         self.acc = (z(shape=(n, 3)), z(), z(), z(torch.int32),
                     z(torch.bool))
-        self.tests = z(torch.float64, (2,))
+        self.tests = z(torch.float64, (4,))
         self.sample_idx = z(torch.int32, ())
         self.n_valid = z(torch.int32, ())
         self.x0, self.y0 = z(torch.int64, ()), z(torch.int64, ())
@@ -230,7 +234,6 @@ class Renderer:
         self._frame_size = torch.tensor([cfg.width, cfg.height],
                                         dtype=torch.float32,
                                         device=self.device)
-        self.timer = PhaseTimer()
         self.last_accumulators = None
         self.last_sample_count = None
         self.last_trace_tests = None
@@ -304,31 +307,42 @@ class Renderer:
         first p.n_valid of k)."""
         return ~p.acc[4], torch.arange(p.k, device=self.device) < p.n_valid
 
-    def _radiance(self, p: PassRunner, masks):
+    def _radiance(self, p: PassRunner):
         """The radiance of the pass's lanes [lo, hi) (this rank's block,
-        all k·n lanes unsharded) and the integrator's `TraceWork`, under
-        the pass's key, derived on the device and split as the JAX
-        package's `_sample_pass` splits it (rrt_tpu/render/renderer.py:
-        163-168)."""
+        all k·n lanes unsharded), the integrator's `TraceWork` and the
+        pass's masks, under the pass's key, derived on the device and
+        split as the JAX package's `_sample_pass` splits it
+        (rrt_tpu/render/renderer.py:163-168)."""
         cfg, dev, k = self.cfg, self.device, p.k
-        active, valid_k = masks
         n = p.rw * p.rh
-        k_jit, k_lens, k_rad = prng.split(pass_key(p.base, p.sample_idx), 3)
-        lo, hi = 0, k * n
-        if self.mesh is not None:      # this rank's block of the k·n lanes
-            lo, hi = shard_bounds(k * n, self.mesh.rank, self.mesh.world)
-            lo, hi = min(lo, k * n), min(hi, k * n)
-        lanes = (lo, hi, k * n)
-        if cfg.ns_aa == 1:
-            jitter = torch.full((n, 2), 0.5, device=dev)
-        else:
-            jitter = lane_uniform(k_jit, (hi - lo, 2), lanes)
-        rays = self.camera_rays(jitter, k_lens, k, (p.x0, p.y0, p.rw, p.rh),
-                                (lo, hi))
-        lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
-        rays = _mask_rays(rays, lane_live[lo:hi], self.bh)
-        return est_radiance(self.scene, self.bh, rays, self.cfg, k_rad,
-                            self.tables, lanes=lanes)
+        with stats.span("pass.camera", dev):
+            masks = active, valid_k = self._masks(p)
+            k_jit, k_lens, k_rad = prng.split(
+                pass_key(p.base, p.sample_idx), 3)
+            lo, hi = 0, k * n
+            if self.mesh is not None:   # this rank's block of the k·n lanes
+                lo, hi = shard_bounds(k * n, self.mesh.rank, self.mesh.world)
+                lo, hi = min(lo, k * n), min(hi, k * n)
+            lanes = (lo, hi, k * n)
+            if cfg.ns_aa == 1:
+                jitter = torch.full((n, 2), 0.5, device=dev)
+            else:
+                jitter = lane_uniform(k_jit, (hi - lo, 2), lanes)
+            rays = self.camera_rays(jitter, k_lens, k,
+                                    (p.x0, p.y0, p.rw, p.rh), (lo, hi))
+            lane_live = active.repeat(k) & valid_k.repeat_interleave(n)
+            rays = _mask_rays(rays, lane_live[lo:hi], self.bh)
+        L, work = est_radiance(self.scene, self.bh, rays, self.cfg, k_rad,
+                               self.tables, lanes=lanes)
+        return L, work, masks
+
+    @staticmethod
+    def _count(p: PassRunner, work):
+        """Add the estimate's counters into p.tests."""
+        p.tests[:2] += work.tests
+        if work.live:
+            p.tests[2] += torch.stack(work.live).sum()
+        p.tests[3] += work.run
 
     def _accumulate(self, p: PassRunner, L: torch.Tensor, masks):
         """Add the first p.n_valid samples of the pass's radiance L (k·n, 3)
@@ -364,25 +378,27 @@ class Renderer:
         accumulators, in place: the unsharded pass. Reads only p's tensors,
         so that one capture serves every pass of the shape.
         Returns the number of trace calls."""
-        masks = self._masks(p)
-        L, work = self._radiance(p, masks)
-        self._accumulate(p, L, masks)
-        p.tests += work.tests
+        L, work, masks = self._radiance(p)
+        with stats.span("pass.accumulate", self.device):
+            self._accumulate(p, L, masks)
+            self._count(p, work)
         return work.calls
 
     def _rank_half(self, p: PassRunner) -> int:
         """The sharded pass up to its gather: this rank's block of the k·n
         lanes estimated, its radiance written into p.sent, its trace
         counters added into p.tests. Returns this rank's trace calls."""
-        L, work = self._radiance(p, self._masks(p))
-        p.sent[:L.shape[0]].copy_(L)
-        p.tests += work.tests
+        L, work, _ = self._radiance(p)
+        with stats.span("pass.accumulate", self.device):
+            p.sent[:L.shape[0]].copy_(L)
+            self._count(p, work)
         return work.calls
 
     def _accumulate_half(self, p: PassRunner):
         """The sharded pass after its gather: every rank's radiance, in
         p.whole, accumulated as `_sample_pass` does."""
-        self._accumulate(p, p.whole, self._masks(p))
+        with stats.span("pass.accumulate", self.device):
+            self._accumulate(p, p.whole, self._masks(p))
 
     # ------------------------------------------------------------ checkpoints
 
@@ -421,6 +437,7 @@ class Renderer:
 
     # ------------------------------------------------------------ render loop
 
+    @stats.span("render.frame")
     def render(self, progress=None, region=None, checkpoint_path=None,
                checkpoint_every: Optional[int] = None, preview_path=None,
                preview_every: Optional[int] = None, resume: bool = False,
@@ -471,11 +488,10 @@ class Renderer:
         try:
             while s < cfg.ns_aa:
                 ks = min(k, cfg.ns_aa - s)
-                # the shape's first pass and its capture, timed apart from
-                # the steady passes
+                # the shape's first pass and its capture, waited for so
+                # that they are timed apart from the steady passes
                 first = not runner.warm
-                with self.timer.phase("compile+first-pass" if first
-                                      else "passes"):
+                with stats.span("render.launch"):
                     calls += runner.run(self, cfg.seed, s, ks, region[0],
                                         region[1])
                     s += ks
@@ -505,7 +521,8 @@ class Renderer:
                         or (spp_cap is not None and s >= int(spp_cap)) \
                         or self._stop
                 if self.mesh is not None:
-                    all_done, stop = self._agree(all_done, stop)
+                    with stats.span("render.agree"):
+                        all_done, stop = self._agree(all_done, stop)
                 if all_done:
                     break
                 if stop:
@@ -522,17 +539,20 @@ class Renderer:
         tests = runner.tests.clone()
         if self.mesh is not None:
             tests = pdist.all_reduce_sum(tests, self.mesh)
-        with self.timer.phase("passes"):        # waits for the device
+        with stats.span("render.readback"):     # waits for the device
             self.last_accumulators = tuple(a.cpu().numpy() for a in acc)
         rad_sum, count = self.last_accumulators[0], self.last_accumulators[3]
         count = count.reshape(rh, rw)
         self.last_sample_count = count
         self.last_trace_tests = tests.cpu().numpy()
+        stats.count("lanes.live", self.last_trace_tests[2])
+        stats.count("lanes.run", self.last_trace_tests[3])
         self.last_trace_calls = calls
         self.last_warm_samples = warm_samples
         self.samples_done = s
         self.cancelled = cancelled
-        hdr = rad_sum.reshape(rh, rw, 3) / np.maximum(count[..., None], 1)
+        with stats.span("render.resolve"):
+            hdr = rad_sum.reshape(rh, rw, 3) / np.maximum(count[..., None], 1)
         return hdr, count
 
     def _agree(self, all_done: bool, stop: bool):

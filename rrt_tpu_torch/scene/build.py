@@ -27,6 +27,7 @@ from rrt_tpu_torch.types import (
     BSDF_REFRACTION, LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_ENV,
     LIGHT_HEMISPHERE, LIGHT_POINT, LIGHT_SPOT, EnvMap, SceneData,
 )
+from rrt_tpu_torch.utils import stats
 
 # triangle rows are padded to a multiple of this, which is also the
 # cluster size of SceneData's bboxes
@@ -245,6 +246,7 @@ def _scene_arrays(info: collada.SceneInfo, with_env: bool = False):
     return arrays, cam_info, c_dir, bbox_min, bbox_max
 
 
+@stats.span("setup.scene")
 def build_scene(info: collada.SceneInfo, device, screen_w: int = 800,
                 screen_h: int = 600, fov_mode: str = "reference",
                 env: Optional[EnvMap] = None) -> Tuple[SceneData, Camera]:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from rrt_tpu_torch.types import EnvMap
+from rrt_tpu_torch.utils import stats
 
 PI = math.pi
 
@@ -103,9 +104,10 @@ def _bilerp(env: EnvMap, x, y):
 
 def sample_dir(env: EnvMap, d):
     """Radiance along directions d (..., 3) (environment_light.cpp:
-    146-148); a profiler sees it as the range "envmap.sample_dir"."""
+    146-148): the device span "envmap.sample_dir" (`utils.stats`), which a
+    profiler sees as a range of that name."""
     h, w = env.pdf.shape
-    with torch.profiler.record_function("envmap.sample_dir"):
+    with stats.span("envmap.sample_dir", d.device):
         theta, phi = _dir_to_theta_phi(d)
         return _bilerp(env, phi / (2.0 * PI) * w, theta / PI * h)
 
@@ -130,10 +132,11 @@ def sample_L(env: EnvMap, xi):
     uniforms xi (..., 2): ξ₁ picks the row, ξ₀ the column. The integer
     upper_bound bins feed the direction and the lookup, as in the
     reference (environment_light.cpp:128-138). Returns (radiance, wi,
-    dist, pdf); a profiler sees it as the range "envmap.sample_L"."""
+    dist, pdf): the device span "envmap.sample_L" (`utils.stats`), which a
+    profiler sees as a range of that name."""
     h, w = env.pdf.shape
     dtype = xi.dtype
-    with torch.profiler.record_function("envmap.sample_L"):
+    with stats.span("envmap.sample_L", xi.device):
         y = torch.clamp(upper_bound(env.marg_cdf, xi[..., 1]), 0, h - 1)
         x = torch.clamp(upper_bound(env.cond_cdf, xi[..., 0], row=y), 0,
                         w - 1)

@@ -8,10 +8,11 @@ of tools/run_config.py):
 SCENE is a .dae file or the name of a procedural scene of
 `rrt_tpu_torch.scenes` (`cbox_dense`). The render runs on the card; the
 CPU only with `--device cpu`. The first pass, and on a card the pass that
-captures it as a CUDA graph, are timed apart from the rest (the renderer's
-"compile+first-pass" phase: the kernel's build, its first launches and
-the capture) and the rates are over the steady passes alone; a render
-without a steady pass is rendered again until it has one. The JSON line
+captures it as a CUDA graph, are timed apart from the rest (the render
+waits for the device after them: the kernel's build, its first launches
+and the capture, up to the progress report after them) and the rates are
+over the steady passes alone; a render without a steady pass is rendered
+again, its passes all warm. The JSON line
 has the JAX tool's keys (wall, first pass, steady seconds, camera, marched
 and geodesic-step rates, total traces, mean radiance), plus the device,
 the trace calls of a render and the trace kernel's runs in it, as the
@@ -99,25 +100,27 @@ def run(argv):
         r = Renderer(scene, cam, cfg, device,
                      graphs=False if args.backend == "plain" else None)
         tk.reset_counts()
+        marks = {}           # seconds since t0 at each pass's report
+
+        def progress(s, total):
+            marks[s] = time.perf_counter() - t0
+            print(f"# {s}/{total} samples t={marks[s]:.1f}s",
+                  file=sys.stderr, flush=True)
         t0 = time.perf_counter()
-        hdr, _ = r.render(progress=lambda s, t: print(
-            f"# {s}/{t} samples t={time.perf_counter() - t0:.1f}s",
-            file=sys.stderr, flush=True))
+        hdr, _ = r.render(progress=progress)
         sync()
         wall = time.perf_counter() - t0
         launches, calls = tk.kernel_runs(), r.last_trace_calls
         st = r.stats(wall)
-        compile_s = r.timer.phases.get("compile+first-pass", 0.0)
-        steady = r.timer.phases.get("passes", 0.0)
+        compile_s = marks.get(r.last_warm_samples, 0.0)
+        steady = wall - compile_s
         steady_rays = (r.samples_done - r.last_warm_samples) * w * h
-        for _ in range(2):     # no steady pass yet: render again, warm
-            if steady_rays > 0:
-                break
-            before = r.timer.phases.get("passes", 0.0)
+        if steady_rays == 0:     # no steady pass: render again, warm
+            t1 = time.perf_counter()
             r.render()
             sync()
-            steady = r.timer.phases["passes"] - before
-            steady_rays = (r.samples_done - r.last_warm_samples) * w * h
+            steady = time.perf_counter() - t1
+            steady_rays = r.samples_done * w * h
     share = steady_rays / max(st.camera_rays, 1)
     per_s = 1.0 / max(steady, 1e-9)
     out = {

@@ -65,17 +65,25 @@ Python runs: a call records the calls and bytes its capture handed to
 collectives (`collectives`), takes them back out of the count (a capture
 runs none), and adds them at every replay, so that the count is that of
 the collectives the device ran.
+
+Set-up and spans (`utils.stats`): the first call runs in the host span
+"setup.eager" and the capture in "setup.capture" (`capture_seconds` is
+its wall), each ending in a sync of the device, so that set-up is timed
+whole. The device spans that `fn` opens while it is captured become
+event pairs of the graph (`spans`); every replay records them again, and
+while the program's spans are collected each replay reads them
+(`stats.replayed`).
 """
 from __future__ import annotations
 
 import os
-import time
 import traceback
 from typing import Callable
 
 import torch
 
 from rrt_tpu_torch.parallel.distributed import COLLECTIVES
+from rrt_tpu_torch.utils import stats
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -118,23 +126,29 @@ class CapturedCall:
         self.calls = 0
         self.capture_seconds = 0.0
         self.replays = 0
+        # the (path, start, end) event pairs of the device spans captured
+        self.spans = []
         # calls and bytes of the collectives inside the graph
         self.collectives = {"calls": 0, "bytes": 0}
 
     def _warm_up(self, *args):
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            out = self.fn(*args)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        with stats.span("setup.eager"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                out = self.fn(*args)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
         return out
 
     def _capture(self, *args):
-        """fn captured into a new graph; returns the graph."""
+        """fn captured into a new graph, its device spans' events with it;
+        returns the graph."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode=capture_mode()):
+        with stats.recording(self.spans), torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode=capture_mode()):
             self.result = self.fn(*args)
+        torch.cuda.synchronize(self.device)
         return graph
 
     def __call__(self, *args):
@@ -142,10 +156,10 @@ class CapturedCall:
         if self.calls == 1:
             return self._warm_up(*args)
         if self.graph is None:
-            t0 = time.perf_counter()
             before = dict(COLLECTIVES)
             try:
-                self.graph = self._capture(*args)
+                with stats.span("setup.capture") as sp:
+                    self.graph = self._capture(*args)
             except Exception as exc:   # noqa: BLE001 — re-raised with context
                 raise RuntimeError(
                     f"capturing {self.name} as a CUDA graph failed at "
@@ -154,8 +168,9 @@ class CapturedCall:
                 for k, v in before.items():
                     self.collectives[k] = COLLECTIVES[k] - v
                     COLLECTIVES[k] = v
-            self.capture_seconds = time.perf_counter() - t0
+            self.capture_seconds = sp.seconds
         self.graph.replay()
+        stats.replayed(self.spans)
         self.replays += 1
         for k, v in self.collectives.items():
             COLLECTIVES[k] += v

@@ -13,8 +13,9 @@ counts the kernels inside a replayed graph too. `python3 chip_smoke.py`
 prints its report for the main path.
 
 `profile_call(fn, ranges)` traces one call and splits its device time:
-the trace kernel's launches, each named `record_function` range's ops
-(`geometry.trace.trace_diff`'s "trace_diff.replay", `scene.envmap`'s
+the trace kernel's launches, each named range's ops (the program's
+spans, `utils.stats`, open a `record_function` range of their name:
+`geometry.trace.trace_diff`'s "trace_diff.replay", `scene.envmap`'s
 "envmap.sample_L" and "envmap.sample_dir") with the backward nodes of
 those ops, and the rest.
 """

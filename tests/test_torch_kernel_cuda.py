@@ -8,7 +8,9 @@ kernel's primal against the CPU's, the toolchain probe, the eight cost
 micro-probes and the threefry kernel (uniforms and keys, in a graph too);
 the passes, Kerr's march blocks and the gradient step
 captured as CUDA graphs against their eager runs, unsharded and sharded
-over an NCCL group of one rank (two graphs around each collective).
+over an NCCL group of one rank (two graphs around each collective); the
+program's device spans as event pairs inside a replayed pass, against a
+wall around the replay and the profiler's device time.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -727,3 +729,85 @@ def test_run_config_plain_backend_on_the_card(device):
         str(device)])
     assert res["launches"] == 0 and res["trace_calls"] == 6
     assert np.isfinite(hdr).all() and hdr.mean() > 0
+
+
+def _main_path(device):
+    """The main path's renderer (256², 16 spp, -l 4 -m 5: one pass of 1M
+    lanes) after its eager pass and its capture."""
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig(width=256, height=256, ns_aa=16, ns_area_light=4,
+                       max_ray_depth=5)
+    scene, cam = load_scene(CBOX_SPHERES, device, 256, 256)
+    r = Renderer(scene, cam, cfg, device)
+    r.render()
+    r.render()
+    (runner,) = r._pass_fns.values()
+    assert runner.call.graph is not None
+    return r, runner.call
+
+
+@pytest.mark.cuda
+def test_replayed_pass_spans_sum_to_its_wall(device, monkeypatch):
+    """The device spans captured into the main path's pass (event pairs in
+    its graph) sum to within 10% of a CUDA-event wall around a replay, and
+    replays reuse the captured pairs: collected renders make no event."""
+    from rrt_tpu_torch.utils import stats
+    r, call = _main_path(device)
+    pairs = list(call.spans)
+    assert len(pairs) >= 1 + 5 + 4 + 2
+    event = torch.cuda.Event
+    w0, w1 = event(enable_timing=True), event(enable_timing=True)
+    stats.reset()
+    torch.cuda.synchronize(device)
+    w0.record()
+    call.graph.replay()
+    w1.record()
+    with stats.collect():
+        stats.replayed(call.spans)
+    wall = w0.elapsed_time(w1) / 1e3
+    spans = stats.COLLECTED.device.self_seconds()
+    assert 0.9 * wall <= spans <= wall, (spans, wall)
+    made = []
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **kw: made.append(
+        (a, kw)) or event(*a, **kw))
+    with stats.collect():
+        for _ in range(3):
+            r.render()
+    assert made == []
+    assert len(call.spans) == len(pairs)
+    assert all(a is b for a, b in zip(call.spans, pairs))
+    got = stats.COLLECTED
+    assert got.host.count("render.frame") == 3
+    assert got.device.count("vertex.nee") == 5 * 4
+    assert got.counters["lanes.run"] == 3 * 5 * 256 * 256 * 16
+    stats.reset()
+
+
+@pytest.mark.cuda
+def test_span_phases_cover_the_profiled_device_time(device):
+    """Over two profiled renders of the main path, the integrator's phase
+    spans (camera, camera hit, NEE, bounce, accumulate) and the trace
+    kernel's spans sum to within 10% of the profiler's device time, and
+    the trace spans to within 10% of the trace kernel's."""
+    from rrt_tpu_torch.utils import stats
+    from rrt_tpu_torch.utils.profile import split_device_time
+    r, _ = _main_path(device)
+    stats.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            r.render()
+        torch.cuda.synchronize(device)
+    device_ms, kernel_ms, _, _ = split_device_time(prof.events())
+    dev = stats.COLLECTED.device
+    phases = 1e3 * dev.self_seconds(["pass.camera", "pass.camera_hit",
+                                     "vertex.nee", "vertex.bounce",
+                                     "pass.accumulate"])
+    traces = 1e3 * dev.self_seconds(["trace.closest", "trace.anyhit"])
+    assert abs(phases + traces - device_ms) <= 0.1 * device_ms, \
+        (phases, traces, device_ms)
+    assert abs(traces - kernel_ms) <= 0.1 * kernel_ms, (traces, kernel_ms)
+    assert stats.COLLECTED.host.count("render.frame") == 2
+    stats.reset()

@@ -33,7 +33,7 @@ from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
 from rrt_tpu_torch.types import Hit, Rays
-from rrt_tpu_torch.utils import prng
+from rrt_tpu_torch.utils import prng, stats
 from rrt_tpu_torch.utils.config import RenderConfig
 
 N_SEG = 63
@@ -289,20 +289,25 @@ def test_est_radiance_with_mesh(world1, small):
 
 def test_renderer_with_sharding(world1, small):
     """Renderer(sharding=) over a world of 1: its accumulators equal the
-    unsharded render's bit for bit, over two passes; the first pass is
-    timed as "compile+first-pass", as the JAX renderer times it."""
+    unsharded render's bit for bit, over two passes; its passes and its
+    agreements between them are timed as host spans of the render."""
     cfg, scene, cam = small
     plain = Renderer(scene, cam, cfg, "cpu")
     plain.render()
     r = Renderer(scene, cam, cfg, "cpu",
                  sharding=sh.batch_sharding(world1))
+    stats.reset()
     r.render()
     for a, b in zip(r.last_accumulators, plain.last_accumulators):
         np.testing.assert_array_equal(a, b)
     assert r.last_trace_calls == plain.last_trace_calls
     np.testing.assert_array_equal(r.last_trace_tests, plain.last_trace_tests)
-    assert set(r.timer.phases) == {"compile+first-pass", "passes"}
-    assert r.timer.phases["compile+first-pass"] > 0
+    spans = {p[-1] for p in stats.HOST if p[0] == "render.frame"}
+    assert {"render.frame", "render.launch", "render.agree",
+            "render.readback", "render.resolve"} <= spans
+    assert stats.HOST.count("render.launch") == 2
+    assert stats.HOST.count("render.agree") == 2
+    assert stats.HOST.seconds("render.launch") > 0
     with pytest.raises(ValueError):
         Renderer(scene, cam, cfg, "cpu", sharding=sh.batch_sharding(
             sh.LaneMesh(None, 0, 1, torch.device("meta"), None)))
