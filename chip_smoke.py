@@ -5,8 +5,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
 
 1. the card: fail without CUDA; print its name and power limit;
 2. build every kernel library from the sources in the checkout (trace,
-   probe, r5prim, threefry), one nvcc each, all started together, and
-   print ptxas's registers and spills;
+   probe, r5prim, threefry, row_adjoint), one nvcc each, all started
+   together, and print ptxas's registers and spills;
 3. trace kernel against its plain PyTorch version on the card. First
    65,536 seeded rays in the in-repo Cornell box, in a procedural scene
    of three triangle parts and in the bench's BVH-scale scene
@@ -39,6 +39,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    lanes of each), a window of a draw of 2^31 + 5 elements, and its key
    entry (`threefry_phase`), each timed beside the
    plain version and `torch.rand` at the same shape;
+3f. the row-adjoint kernel of the BSDF gathers (`ops/csrc/row_adjoint.cu`)
+   against its plain version in float64, the same bits twice, at 65,536
+   (uniform and skewed ids) and 1,048,576 lanes onto the spheres box's 7
+   rows (`row_adjoint_phase`), timed on the device and as an eager call
+   beside `index_put_(accumulate=True)`, autograd's adjoint;
 4. the main path through the CLI: 256×256, 16 spp, -l 4, -m 5, curved
    global illumination on cuda, with every trace and every draw counted
    at its kernel (65 uniforms a lane: the JAX package's draws);
@@ -274,6 +279,27 @@ def device_us_per_launch(fn, reps, match):
     return float("nan")
 
 
+def device_ms_per_call(fn, reps):
+    """Device milliseconds a call of fn: every device event (kernels,
+    copies, fills) of `reps` calls under torch.profiler, summed, over
+    `reps`."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):      # a profile that caught no device event: again
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return sum(us) / reps / 1e3
+    return float("nan")
+
+
 def finite(obj):
     """obj with every float that is not finite (a time not measured)
     made None, so that it prints as JSON."""
@@ -443,6 +469,76 @@ def threefry_phase(dev, card, peak, n=1 << 20, reps=20):
           f"{key_ms:.4f} ms on the device ({key_call_ms:.4f} ms an eager "
           f"call), plain {key_plain_ms:.4f} ms ({card})")
     return dict(rows=rows, max_abs_err=err)
+
+
+def row_adjoint_phase(dev, card, reps=20):
+    """The row-adjoint kernel (`ops/csrc/row_adjoint.cu`, the BSDF
+    gathers' adjoint in a gradient step) against its plain version in
+    float64 and twice for the same bits, at the spheres box's table (7
+    rows, the seven float fields: 17 columns) over a vertex of the
+    benchmark's step (65,536 lanes; ids uniform, and skewed: 90% of the
+    lanes on one row, as most of a vertex's lanes hit one material) and
+    of a 16-spp pass (1,048,576 lanes). Each is timed beside the plain
+    version (`index_add_`) and autograd's adjoint of indexing
+    (`index_put_(accumulate=True)` a field), each the same two ways: its
+    device time a call (every device event of `reps` calls under the
+    profiler) and the median wall of an eager call between CUDA events;
+    and beside its least time: every lane's id and gradient read once and
+    the rows written once, at the memory rate. Returns the rows by case."""
+    import torch
+    from rrt_tpu_torch.ops import row_adjoint as ra
+    from rrt_tpu_torch.tools.trace_modes import HBM_BYTES_PER_S
+
+    widths, rows = (3, 3, 3, 3, 3, 1, 1), 7
+    out = {}
+    for case, n in (("65536", 65536), ("65536 skewed", 65536),
+                    ("1048576", 1 << 20)):
+        gen = torch.Generator().manual_seed(n)
+        ids = torch.randint(-1, rows, (n,), generator=gen)
+        if "skewed" in case:
+            ids = torch.where(torch.rand(n, generator=gen) < 0.9,
+                              torch.full_like(ids, 3), ids)
+        ids = ids.to(dev)
+        grads = [torch.randn((n, w) if w > 1 else (n,),
+                             generator=gen).to(dev) for w in widths]
+        got = ra.row_adjoint(ids, grads, rows)
+        again = ra.row_adjoint(ids, grads, rows)
+        want = ra.row_adjoint_reference(ids.cpu(), [g.cpu().double()
+                                                    for g in grads], rows)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"row adjoint {case}: two calls differ")
+        err = max(float((a.cpu().double() - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, want))
+        if err > 1e-4:
+            raise AssertionError(f"row adjoint {case}: off by {err:.3g}")
+        i = ids.clamp(0, rows - 1)
+        tables = [torch.zeros((rows,) + g.shape[1:], device=dev)
+                  for g in grads]
+
+        def library():
+            for t, g in zip(tables, grads):
+                t.index_put_((i,), g, accumulate=True)
+        timed = dict(
+            kernel=lambda: ra.row_adjoint(ids, grads, rows),
+            plain=lambda: ra.row_adjoint_reference(ids, grads, rows),
+            library=library)
+        row = {}
+        for k, fn in timed.items():
+            pre = "" if k == "kernel" else k + "_"
+            row[pre + "ms"] = device_ms_per_call(fn, reps)
+            row[pre + "call_ms"] = event_ms(fn, reps)
+        row.update(bound_ms=1e3 * n * (8 + 4 * sum(widths))
+                   / HBM_BYTES_PER_S, max_rel_err=err)
+        out[case] = row
+        print(f"[smoke] row adjoint {case} lanes onto {rows} rows, 17 "
+              f"columns: equal to float64 within {err:.3g} of the largest "
+              f"row, the same bits twice; device ms a call (eager call's "
+              f"wall): kernel {row['ms']:.4f} ({row['call_ms']:.4f}), plain "
+              f"{row['plain_ms']:.4f} ({row['plain_call_ms']:.4f}), "
+              f"index_put_ {row['library_ms']:.4f} "
+              f"({row['library_call_ms']:.4f}); bound {row['bound_ms']:.4f} "
+              f"ms (bytes; {card})")
+    return out
 
 
 def card_vs_cpu_phase(dev, card, size=32):
@@ -910,11 +1006,15 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=(), mesh=None):
     each; host launches and the busy share of a profiled step of each
     (`ranges` split the eager one's device time); peak memory above the
     case's start, eager and at the capture; the capture seconds and the
-    graph pool's reserved MiB. Returns (row, the eager (loss, grads), the
+    graph pool's reserved MiB. The row-adjoint kernel's runs (the BSDF
+    gathers' adjoints) are counted at every call too: the same in the
+    eager and the replayed step, every one launched through Python in an
+    eager step and none in a replayed one. Returns (row, the eager (loss, grads), the
     eager step's profile). With `mesh`, the sharded step: its two halves
     captured around the all-reduce, the capture seconds of both."""
     import gc
     import torch
+    from rrt_tpu_torch.ops import row_adjoint as ra
     from rrt_tpu_torch.ops import trace_kernel as tk
     from rrt_tpu_torch.render import diff
     from rrt_tpu_torch.utils import prng
@@ -934,11 +1034,13 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=(), mesh=None):
             torch.equal(x, y) for x, y in zip(a[1].leaves(), b[1].leaves()))
 
     runs = {}     # graphs -> the kernel's runs in the last call
+    adjoints = {}  # graphs -> the row-adjoint kernel's runs in the last call
 
     def counted(g, eager=False):
         """A call of the step; it launches through Python only when it
         runs eagerly (`graphs=False`, or the compiled step's warm-up)."""
         tk.reset_counts()
+        ra.reset_counts()
         w, out, peak = _timed_call(dev, lambda: steps[g](params, gen()))
         calls, runs[g] = steps[g].trace_calls, tk.kernel_runs()
         if runs[g] != calls or calls == 0 or tk.LAUNCHES != (
@@ -946,6 +1048,12 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=(), mesh=None):
             raise AssertionError(
                 f"{name} (graphs {g}): {runs[g]} kernel runs and "
                 f"{tk.LAUNCHES} eager launches for {calls} trace calls")
+        adjoints[g] = ra.kernel_runs()
+        if ra.LAUNCHES != (adjoints[g] if eager or not g else 0) or (
+                adjoints[g] != adjoints.get(False)):
+            raise AssertionError(
+                f"{name} (graphs {g}): {adjoints} row-adjoint runs and "
+                f"{ra.LAUNCHES} eager launches")
         return w, out, peak
 
     _, ref, eager_peak = counted(False)
@@ -985,7 +1093,8 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=(), mesh=None):
     pool -= torch.cuda.memory_reserved(dev) / mib
     row = dict(
         equal=all(equal), calls=len(equal), trace_calls=trace_calls,
-        replay_kernel_runs=runs[True], eager=walls[False],
+        replay_kernel_runs=runs[True], adjoint_runs=adjoints[True],
+        eager=walls[False],
         graph=walls[True], first_graph_call=first, capture_call=second,
         capture_s=capture, replays=replays,
         host_launches={str(g): p.host_launches for g, p in prof.items()},
@@ -999,7 +1108,8 @@ def grad_step_case(dev, card, name, problem, reps=5, ranges=(), mesh=None):
         pool_mib=pool, seconds=time.perf_counter() - t_case)
     print(f"[smoke] gradient step, {name}: compiled = eager bit for bit "
           f"{row['equal']} ({row['calls']} calls, loss, 11 gradients and "
-          f"the SGD update); eager {_spread(walls[False])}, compiled "
+          f"the SGD update); {adjoints[True]} row-adjoint runs a step, "
+          f"eager and replayed; eager {_spread(walls[False])}, compiled "
           f"{_spread(walls[True])}; first compiled call (eager) {first:.4f} "
           f"s, second {second:.4f} s (capture {capture:.4f} s); host "
           f"launches a step eager {prof[False].host_launches}, compiled "
@@ -2096,6 +2206,7 @@ def main(argv=None):
     from rrt_tpu_torch.geometry import trace as tracer
     from rrt_tpu_torch.io.exr import write_exr
     from rrt_tpu_torch.ops import build, probe as tprobe, threefry
+    from rrt_tpu_torch.ops import row_adjoint
     from rrt_tpu_torch.ops import trace_kernel as tk
     from rrt_tpu_torch.render import diff
     from rrt_tpu_torch.render.renderer import Renderer, make_black_hole
@@ -2363,6 +2474,10 @@ def main(argv=None):
     # path's shapes, bit for bit, timed beside torch.rand
     draws = threefry_phase(dev, card, peak)
 
+    # ---- 3f. the row-adjoint kernel against its plain version, timed
+    # beside autograd's adjoint of indexing
+    adjoints = row_adjoint_phase(dev, card)
+
     # ---- 4. the main path, every trace and every draw counted at its
     # kernel, and the uniforms it draws tallied
     drawn = []
@@ -2375,6 +2490,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         tk.reset_counts()
         threefry.reset_counts()
+        row_adjoint.reset_counts()
         threefry.uniform = tallied
         t0 = time.perf_counter()
         try:
@@ -2389,6 +2505,11 @@ def main(argv=None):
         rng_launches = dict(uniform=threefry.LAUNCHES,
                             keys=threefry.KEY_LAUNCHES,
                             runs=threefry.kernel_runs())
+        # a frame takes no gradient: no row adjoint runs
+        frame_adjoints = (row_adjoint.kernel_runs(), row_adjoint.LAUNCHES)
+        if frame_adjoints != (0, 0):
+            raise AssertionError(f"main path: {frame_adjoints} row-adjoint "
+                                 f"runs and launches in a frame")
         if not os.path.getsize(os.path.join(tmp, "cbox.png")):
             raise AssertionError("main path wrote an empty PNG")
     # one eager pass: every draw and key went through the kernel, and the
@@ -2505,6 +2626,10 @@ def main(argv=None):
         (dparams, dscene, dbh, drays, dcfg, dtarget, 0),
         ranges=("trace_diff.replay",))
     diff_launches = grad_rows["diff step"]["trace_calls"]
+    # the step's BSDF gathers take the row-adjoint kernel, not index_put_
+    step_adjoints = grad_rows["diff step"]["adjoint_runs"]
+    if not step_adjoints > 0:
+        raise AssertionError("diff step: no row-adjoint run in the step")
     for name, g in zip(names, dgrads.leaves()):
         if not torch.isfinite(g).all():
             raise AssertionError(f"diff step: {name} gradient not finite")
@@ -2899,6 +3024,21 @@ def main(argv=None):
         "launches": rng_launches["keys"],
         **draws["rows"]["keys"],
         "library_ms": None,
+    }, {
+        "name": "row_adjoint",
+        "route": "cuda",
+        "source": "rrt_tpu_torch/ops/csrc/row_adjoint.cu",
+        "replaces": None,
+        "replaces_note": "autograd's index_put_ adjoint of the BSDF "
+                         "gathers (rrt_tpu_torch/render/bsdf.py _gather): "
+                         "no Pallas kernel",
+        # a step's runs (each two kernels), eager and in its graph; 0 in
+        # the main path's frame
+        "launches": step_adjoints,
+        "frame_launches": frame_adjoints[1],
+        **adjoints["65536"],
+        "shape": [65536, 17],
+        "shapes": adjoints,
     }]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,15 @@ def _declare_threefry(lib):
     lib.rrt_threefry_error_string.restype = ctypes.c_char_p
 
 
+def _declare_row_adjoint(lib):
+    lib.rrt_row_adjoint.argtypes = [
+        _vp, ctypes.c_longlong, _i, _i, ctypes.POINTER(_vp),
+        ctypes.POINTER(_vp), ctypes.POINTER(_i), _i, _vp, _vp, _vp, _i, _vp]
+    lib.rrt_row_adjoint.restype = _i
+    lib.rrt_row_adjoint_error_string.argtypes = [_i]
+    lib.rrt_row_adjoint_error_string.restype = ctypes.c_char_p
+
+
 @dataclasses.dataclass(frozen=True)
 class Family:
     """One library: its sources, and the C signatures it exports."""
@@ -84,6 +93,8 @@ FAMILIES: Dict[str, Family] = {
     "r5prim": Family("r5prim", (_CSRC / "r5prim.cu",), _declare_r5prim),
     "threefry": Family("threefry", (_CSRC / "threefry.cu",),
                        _declare_threefry),
+    "row_adjoint": Family("row_adjoint", (_CSRC / "row_adjoint.cu",),
+                          _declare_row_adjoint),
 }
 
 # per family, what its last build in this process printed, how long it

@@ -13,6 +13,16 @@ Sampling takes its uniforms as tensors (`xi`, `xim`, `xic`): the
 integrator draws them from the three keys of `split(key, 3)`, as the JAX
 package's `sample` does (rrt_tpu/render/bsdf.py:184-227), and tests hand
 both packages the same ones.
+
+Where a field requires grad under grad mode (the gradient step), the
+gather is one `torch.autograd.Function`: its forward is plain indexing,
+and its backward sums every field's lane gradients onto the table's rows
+at once (`ops/row_adjoint.py`: one launch of the row-adjoint kernel on a
+card, in a fixed order; `index_add_` on the CPU or in another dtype).
+Elsewhere (frames) it is plain indexing: there the Function buys nothing,
+and on a card a frame's pass captured through it, after gradient steps
+in the same process, once broke the capture of a later 1024² pass
+(`cudaErrorStreamCaptureInvalidated`; `chip_smoke.py` phase 4g).
 """
 from __future__ import annotations
 
@@ -21,10 +31,12 @@ from typing import NamedTuple
 
 import torch
 
+from rrt_tpu_torch.ops import row_adjoint
 from rrt_tpu_torch.types import (
     BSDF_DIFFUSE, BSDF_EMISSION, BSDF_GLASS, BSDF_MICROFACET, BSDF_MIRROR,
     BSDF_REFRACTION, BSDFTable,
 )
+from rrt_tpu_torch.utils import stats
 
 PI = math.pi
 
@@ -35,13 +47,47 @@ class BSDFSample(NamedTuple):
     value: torch.Tensor   # (..., 3) the sample_f return (f or delta weight)
 
 
+# the table's float fields, in the order of BSDFTable
+FIELDS = ("reflectance", "transmittance", "emission", "eta", "k", "alpha",
+          "ior")
+
+
+class _RowGather(torch.autograd.Function):
+    """`field[i]` for each field: the values of plain indexing, with one
+    adjoint for all of them, `ops.row_adjoint` (one kernel launch on a
+    card, summed in a fixed order, in the device span
+    "step.gather_adjoint"), in place of autograd's `index_put_` a field.
+    A field that does not require grad gives an output that does not."""
+
+    @staticmethod
+    def forward(ctx, i, *fields):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(i)
+        ctx.rows = fields[0].shape[0]
+        out = tuple(f[i] for f in fields)
+        ctx.mark_non_differentiable(*(o for f, o in zip(fields, out)
+                                      if not f.requires_grad))
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        i, = ctx.saved_tensors
+        grads = [g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad[1:])]
+        with stats.span("step.gather_adjoint", i.device):
+            rows = row_adjoint.row_adjoint(i, grads, ctx.rows)
+        return (None, *rows)
+
+
 def _gather(table: BSDFTable, bsdf_id) -> BSDFTable:
     """Per-lane material rows (ids < 0 are clipped; callers mask them)."""
     i = torch.clamp(bsdf_id, 0, table.kind.shape[0] - 1).long()
-    return BSDFTable(kind=table.kind[i], reflectance=table.reflectance[i],
-                     transmittance=table.transmittance[i],
-                     emission=table.emission[i], eta=table.eta[i],
-                     k=table.k[i], alpha=table.alpha[i], ior=table.ior[i])
+    fields = [getattr(table, f) for f in FIELDS]
+    if torch.is_grad_enabled() and any(f.requires_grad for f in fields):
+        rows = _RowGather.apply(i, *fields)
+    else:
+        rows = [f[i] for f in fields]
+    return BSDFTable(kind=table.kind[i], **dict(zip(FIELDS, rows)))
 
 
 def emission(table: BSDFTable, bsdf_id):

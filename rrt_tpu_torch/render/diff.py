@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rrt_tpu_torch.ops import row_adjoint
 from rrt_tpu_torch.ops.trace_kernel import (TraceTables, build_tables,
                                             with_hole)
 from rrt_tpu_torch.parallel import distributed as pdist
@@ -185,12 +186,14 @@ def _local_value_and_grad(leaves, scene, bh, rays, target, cfg, key, mesh,
     that require grad, with `mesh` this rank's share of both (no
     collective); a leaf the loss does not reach gets a zero gradient. The
     forward and the loss are the device span "step.forward", the
-    backward pass "step.backward" (`utils.stats`)."""
+    backward pass "step.backward" (`utils.stats`), which the spans of the
+    BSDF gathers' adjoints ("step.gather_adjoint", on autograd's own
+    thread on a card) nest in."""
     dev = rays.o.device
     with stats.span("step.forward", dev):
         loss, work = image_loss(SceneParams.from_leaves(leaves), scene, bh,
                                 rays, target, cfg, key, mesh, tables, True)
-    with stats.span("step.backward", dev):
+    with stats.span("step.backward", dev), stats.lend():
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
@@ -284,7 +287,13 @@ class LossAndGrad:
     step, or each half, is a `CapturedCall`: the first call runs eagerly
     on a side stream, the second is captured and replayed, later calls
     replay, the seam running between the halves. Without graphs (the CPU,
-    or `graphs=False`) every call runs the same step eagerly."""
+    or `graphs=False`) every call runs the same step eagerly.
+
+    While the program's spans are collected (`utils.stats`), a call
+    counts the lanes that the BSDF gathers' adjoints reduced under
+    "adjoint.lanes": the step copies the adjoints' lane counter
+    (`ops.row_adjoint.counter`) into `lanes_at` before and after its
+    backward, on the device, and a collected call reads the two once."""
 
     def __init__(self, scene: SceneData, bh: Optional[BlackHoleParams],
                  cfg: RenderConfig, rays: Rays, target: torch.Tensor,
@@ -311,6 +320,9 @@ class LossAndGrad:
             self.flat = torch.zeros(size, dtype=torch.float32, device=dev)
             self.summed = torch.zeros_like(self.flat)
         self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+        # the row adjoints' lanes reduced, before and after the backward
+        self.lanes_at = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.lanes = row_adjoint.counter(dev)[1]
         # the CapturedCalls, made at the first call: the step (or half A)
         # and, with a mesh, half B
         self.call = self.update = None
@@ -327,18 +339,22 @@ class LossAndGrad:
     def _run(self, out) -> int:
         """One unsharded step on the static buffers, its results written
         into `out`; returns its trace calls."""
+        self.lanes_at[0].copy_(self.lanes)
         loss, grads, calls = _value_and_grad(
             self.leaves, self.scene, self.bh, self.rays, self.target,
             self.cfg, self.key, None, self.tables)
+        self.lanes_at[1].copy_(self.lanes)
         self._write(out, loss, grads)
         return calls
 
     def _half_a(self, flat) -> int:
         """The sharded step up to its all-reduce: this rank's loss share
         and gradients packed into `flat`; returns its trace calls."""
+        self.lanes_at[0].copy_(self.lanes)
         loss, grads, calls = _local_value_and_grad(
             self.leaves, self.scene, self.bh, self.rays, self.target,
             self.cfg, self.key, self.mesh, self.tables)
+        self.lanes_at[1].copy_(self.lanes)
         flat.copy_(pdist.pack_flat([loss, *grads]))
         return calls
 
@@ -389,6 +405,10 @@ class LossAndGrad:
             self.lr.fill_(lr)
             self.key.copy_(key)
         self.trace_calls = self._evaluate()
+        if stats.collecting():
+            before, after = self.lanes_at.tolist()
+            if after > before:
+                stats.count("adjoint.lanes", after - before)
         n = len(self.leaves)
         out = [b.clone() for b in self.out]
         return (out[0], SceneParams.from_leaves(out[1:1 + n]),

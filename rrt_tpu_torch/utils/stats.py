@@ -21,7 +21,10 @@ event-record nodes of the graph, not kernels: the pairs belong to the
 call being captured (`recording`, which `utils/graphs.CapturedCall`
 opens), and every replay of the graph records them again. Spans nest: a
 device span's path holds the device spans around it, and a span's self
-time is its seconds less those of the spans directly inside it.
+time is its seconds less those of the spans directly inside it. Open
+spans are a thread's own; inside `lend()` a thread's innermost span also
+holds the spans that other threads open outside any of theirs (autograd's
+thread of a CUDA backward).
 
 **Collection.** Device times and counters are read only while
 collecting: while a `torch.profiler` is active, or inside `collect()`.
@@ -40,7 +43,7 @@ import dataclasses
 import functools
 import threading
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -198,6 +201,17 @@ COLLECTED = Collection()    # read while collecting
 _HOST_SPANS: Dict[str, None] = {}   # names of host spans, in first-seen order
 _FORCED = 0                 # open `collect()` blocks
 _LOCAL = threading.local()  # this thread's open spans, eager pairs, sink
+_LENT = None                # the open `lend()` block's `_Lent`
+
+
+class _Lent(NamedTuple):
+    """What `lend()` lends: the lending thread, its innermost open span,
+    its capture's sink and its eager pairs."""
+
+    thread: int
+    span: Optional["span"]
+    sink: Optional[list]
+    pending: list
 
 
 def _local(attr: str, make):
@@ -239,6 +253,25 @@ def count(name: str, value):
     if collecting():
         COLLECTED.counters[name] = COLLECTED.counters.get(name, 0.0) \
             + float(value)
+
+
+@contextlib.contextmanager
+def lend():
+    """Inside the block, a span that another thread opens outside any span
+    of its own nests in this thread's innermost open span, and its device
+    events go where this thread's would: into the pairs of the call being
+    captured, or the eager pairs that this thread reads when its outermost
+    span closes. Autograd runs a CUDA backward on a thread of its own while
+    the thread that called it waits (`render/diff`'s "step.backward")."""
+    global _LENT
+    stack = _local("stack", list)
+    prev = _LENT
+    _LENT = _Lent(threading.get_ident(), stack[-1] if stack else None,
+                  getattr(_LOCAL, "sink", None), _local("pending", list))
+    try:
+        yield
+    finally:
+        _LENT = prev
 
 
 @contextlib.contextmanager
@@ -293,7 +326,9 @@ class span:
 
     def __enter__(self):
         stack = _local("stack", list)
-        outer = stack[-1] if stack else None
+        lent = _LENT if not stack and _LENT is not None \
+            and _LENT.thread != threading.get_ident() else None
+        outer = stack[-1] if stack else lent.span if lent else None
         self.path = (outer.path if outer else ()) + (self.name,)
         self.dpath = outer.dpath if outer else ()
         self.pair = None
@@ -302,8 +337,13 @@ class span:
             self.dpath += (self.name,)
             if dev.type == "cuda":
                 capturing = torch.cuda.is_current_stream_capturing()
-                sink = getattr(_LOCAL, "sink", None) if capturing \
-                    else _local("pending", list) if collecting() else None
+                if capturing:
+                    sink = lent.sink if lent else getattr(_LOCAL, "sink",
+                                                          None)
+                elif collecting():
+                    sink = lent.pending if lent else _local("pending", list)
+                else:
+                    sink = None
                 if sink is not None:
                     start = torch.cuda.Event(enable_timing=True,
                                              external=capturing)
@@ -341,6 +381,9 @@ class span:
 
 
 def report() -> str:
-    """The host spans' seconds, one entry a name: `name: seconds`."""
-    return " | ".join(f"{name}: {HOST.seconds(name):.2f}s"
-                      for name in _HOST_SPANS)
+    """The host spans' seconds, one entry a name: `name: seconds`, then
+    the counters collected: `name: value`."""
+    return " | ".join([f"{name}: {HOST.seconds(name):.2f}s"
+                       for name in _HOST_SPANS]
+                      + [f"{name}: {value:.0f}" for name, value
+                         in COLLECTED.counters.items()])

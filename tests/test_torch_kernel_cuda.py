@@ -10,7 +10,9 @@ the passes, Kerr's march blocks and the gradient step
 captured as CUDA graphs against their eager runs, unsharded and sharded
 over an NCCL group of one rank (two graphs around each collective); the
 program's device spans as event pairs inside a replayed pass, against a
-wall around the replay and the profiler's device time.
+wall around the replay and the profiler's device time; the row-adjoint
+kernel of the BSDF gathers against its plain version, bit for bit from
+run to run, and inside a replayed gradient step.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -810,4 +812,142 @@ def test_span_phases_cover_the_profiled_device_time(device):
         (phases, traces, device_ms)
     assert abs(traces - kernel_ms) <= 0.1 * kernel_ms, (traces, kernel_ms)
     assert stats.COLLECTED.host.count("render.frame") == 2
+    stats.reset()
+
+
+# row adjoints (ops/csrc/row_adjoint.cu): the BSDF table's fields, widths
+# 3 and 1, some gradients None; 7 rows is the spheres box's table, whose
+# partials stay in shared memory; at 64 and 256 rows they do not fit
+# beside the staging and go to the global workspace
+ADJOINT_WIDTHS = (3, None, 3, 1, 3, None, 1)
+ADJOINT_ROWS = (1, 7, 64, 256)
+ADJOINT_LANES = (1, 65536, 1 << 20, 100003)
+
+
+def _adjoint_case(rows, n, device, seed=0):
+    """Lane ids in [−3, rows + 3) (clamped by the kernel as by the gather)
+    and one gradient a field of `ADJOINT_WIDTHS` (None where None)."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(-3, rows + 3, (n,), generator=gen)
+    grads = [None if w is None else
+             torch.randn((n, w) if w > 1 else (n,), generator=gen)
+             for w in ADJOINT_WIDTHS]
+    return ids.to(device), [None if g is None else g.to(device)
+                            for g in grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ADJOINT_ROWS)
+@pytest.mark.parametrize("n", ADJOINT_LANES)
+def test_row_adjoint_kernel_matches_plain(device, rows, n):
+    """The kernel's row adjoints against the plain version in float64 on
+    the CPU: one launch, the lanes counted on the device, None where the
+    gradient is None. The kernel sums in float32 in another order than
+    the plain version: a warp's lanes in turn (32 a chunk), then the
+    block's 8 warps, then the blocks; no term passes through more than
+    d = 32·(chunks + 1) + 8 + blocks float32 additions (a run of one row
+    within its chunk, the warp's partial over its chunks), so each sum is
+    within d·2⁻²⁴·Σ|g| of the exact one (plus its own rounding)."""
+    from rrt_tpu_torch.ops import row_adjoint as ra
+    ids, grads = _adjoint_case(rows, n, device)
+    ra.reset_counts()
+    got = ra.row_adjoint(ids, grads, rows)
+    assert ra.LAUNCHES == 1 and ra.kernel_runs() == 1
+    assert ra.lanes() == n
+    cpu = [None if g is None else g.cpu().double() for g in grads]
+    want = ra.row_adjoint_reference(ids.cpu(), cpu, rows)
+    mass = ra.row_adjoint_reference(
+        ids.cpu(), [None if g is None else g.abs() for g in cpu], rows)
+    blocks = ra.grid(n, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    per_block = -(-n // blocks)
+    d = 32 * (-(-per_block // ra.THREADS) + 1) + ra.WARPS + blocks
+    for g, k, w, a in zip(grads, got, want, mass):
+        assert (k is None) == (g is None)
+        if k is None:
+            continue
+        assert k.shape == w.shape and k.dtype == torch.float32
+        err = (k.cpu().double() - w).abs()
+        assert (err <= d * 2.0 ** -24 * a + 2.0 ** -24 * w.abs()).all(), \
+            float((err - d * 2.0 ** -24 * a).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [7, 256])
+def test_row_adjoint_kernel_gives_the_same_bits_twice(device, rows):
+    """Two calls on a million lanes give the same bits: no float atomics,
+    every sum in an order fixed by the grid (in shared memory at 7 rows,
+    in the global workspace at 256)."""
+    from rrt_tpu_torch.ops import row_adjoint as ra
+    ids, grads = _adjoint_case(rows, 1 << 20, device, seed=5)
+    a = ra.row_adjoint(ids, grads, rows)
+    b = ra.row_adjoint(ids, grads, rows)
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
+
+
+def _step_case(device, size=64):
+    """The card tests' gradient step: 64×64 curved global illumination
+    (-l 1, -m 2) of the spheres box, one ray a pixel centre."""
+    from rrt_tpu_torch.render import diff
+    from rrt_tpu_torch.render.renderer import make_black_hole
+    from rrt_tpu_torch.tools.inverse import RADIUS_FRAME, pixel_rays
+    from rrt_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig(width=size, height=size, ns_aa=1, ns_area_light=1,
+                       max_ray_depth=2, seed=0)
+    scene, cam = load_scene(CBOX_SPHERES, device, size, size,
+                            fov_mode="native")
+    bh = make_black_hole(cfg, device)
+    rays = pixel_rays(cam, size, size, device, RADIUS_FRAME)
+    target = torch.full_like(rays.o, 0.2)
+    return diff.LossAndGrad(scene, bh, cfg, rays, target), \
+        diff.params_from_scene(scene, bh)
+
+
+@pytest.mark.cuda
+def test_compiled_step_takes_the_row_adjoint_kernel(device):
+    """A replayed gradient step runs its BSDF gathers' adjoints through the
+    row-adjoint kernel and no `indexing_backward_kernel` (the profiler's
+    device kernels); collected, its spans "step.gather_adjoint" are event
+    pairs of the step's graph inside "step.backward", read by
+    `gather_adjoint_ms.step`, and the step counts the lanes reduced under
+    "adjoint.lanes". A frame counts none."""
+    from cardbench import harness
+    from rrt_tpu_torch.ops import row_adjoint as ra
+    from rrt_tpu_torch.render.renderer import Renderer
+    from rrt_tpu_torch.utils import stats
+    step, params = _step_case(device)
+    for i in range(2):                       # eager, captured and replayed
+        step(params, prng.key(i, device))
+    assert step.call.graph is not None
+    assert any(p[0][-1] == "step.gather_adjoint" for p in step.call.spans)
+    ra.reset_counts()
+    stats.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(params, prng.key(2, device))
+        torch.cuda.synchronize(device)
+    names = {ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("partials_kernel" in s for s in names)
+    assert not any("indexing_backward_kernel" in s for s in names)
+    runs = ra.kernel_runs()
+    assert runs > 0 and ra.LAUNCHES == 0
+    got = stats.COLLECTED
+    assert got.device.count("step.gather_adjoint") == runs
+    assert all("step.backward" in p for p in got.device
+               if p[-1] == "step.gather_adjoint")
+    assert got.counters["adjoint.lanes"] == ra.lanes() > 0
+    assert "adjoint.lanes" in stats.report()
+    ms = harness.load_module("metrics", "gather_adjoint_ms.step").read({})
+    assert 0 < ms < 1e3 * got.device.seconds("step.backward")
+    stats.reset()
+    cfg = step.cfg.replace(width=32, height=32)
+    r = Renderer(step.scene, load_scene(CBOX_SPHERES, device, 32, 32)[1],
+                 cfg, device)
+    with stats.collect():
+        r.render()
+    assert "adjoint.lanes" not in stats.COLLECTED.counters
+    assert ra.kernel_runs() == runs
     stats.reset()
