@@ -110,9 +110,13 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    kernel equals the plain traversal's on calm lanes, ≥ 99.5% overall;
 4i. Kerr, BASELINE config 5 at full width (1024×1024, spin 0.9, disk
    [3, 12], 600 RK4 steps, one batch of 1 << 20 lanes, 1 spp where config
-   5 has 16): the structure checks of tests/test_kerr.py, wall (in
-   captured blocks of steps, and step by step: equal bit for bit), rays/s,
-   RK4 steps/s, peak memory, launches per RK4 step and the busy share;
+   5 has 16): the structure checks of tests/test_kerr.py, wall (through
+   the march kernel, one eager launch and one run, and step by step, no
+   run: equal bit for bit), rays/s, RK4 steps/s, peak memory; the march
+   kernel against its plain version at the cell's batch (2¹⁸ lanes, 600
+   steps: time by CUDA events, bound from `cardbench/kerr_work`, the plain
+   march's time, compiled = eager); host launches and the busy
+   share of a replayed 1024² march;
    a 32×32, 300-step render on the card against the CPU (≥ 99% of lanes
    agree on the disk and escape masks, radiance to rtol 1e-3 there);
 4j. the lane-sharded main path on a world of 1 over NCCL
@@ -133,8 +137,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    `LossAndGrad(mesh=)`, compiled (two graphs around the all-reduce)
    against eager bit for bit, and against the unsharded step (rtol 1e-4
    on the material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at
-   64×64, 300 steps in captured blocks, equal bit for bit to the sharded
-   march step by step and to the unsharded CLI;
+   64×64, 300 steps through the captured march kernel, equal bit for bit
+   to the sharded march step by step and to the unsharded CLI;
 4k. two ranks of `rrt_tpu_torch.parallel.worker` on the one card over
    gloo at 255×255 (an odd lane count), with graphs around the
    collectives: the blocks tile the frame, the forward equals the whole
@@ -149,13 +153,16 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases:
    a finite, lit image, launches equal to trace calls; their JSON
    lines) and `kbench 20` on `cbox_dense` and the Cornell box;
 4m. the compiled pass: every renderer above captures each pass shape as a
-   CUDA graph and replays it (`Renderer._pass_fn`), and Kerr marches in
-   captured blocks (`kerr_scene.DiskMarch`); here each is held against the
+   CUDA graph and replays it (`Renderer._pass_fn`), and Kerr marches a
+   batch as one captured kernel launch (`kerr_scene.DiskMarch`); here each
+   is held against the
    eager path (`graphs=False`) bit for bit in accumulators, counters and
    trace calls, on the primary cell, a tail pass, two `-p` cells of one
    size, an adaptive render, the 16-pass lifecycle render stopped at 8
    samples and resumed, `cbox_dense`, a flat and an env-lit render and
-   Kerr at 64×64 in blocks: walls in turns (5 each), host launches a
+   Kerr at 64×64 (its replays equal its eager launch and the
+   step-by-step march bit for bit): walls in turns
+   (5 each), host launches a
    pass, busy share, peak memory, the graph pool and capture time
    (`first_frame_phase(DIR, card)`, run alone from a script, times the
    CLI's main path from fresh processes of an earlier checkout and of
@@ -891,17 +898,114 @@ def dumps_phase(dev, card, tmp, size=256):
                 launches=cli_launches + sum(r["launches"] for r in rows))
 
 
+def _event_once_ms(fn):
+    """Device milliseconds of one call of fn between two CUDA events (no
+    warm-up: for calls that update their buffers in place)."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def kerr_kernel_case(dev, card, n_steps=600, lanes=(1 << 18, 1 << 19),
+                     reps=5):
+    """The Kerr march kernel against its plain version at the cell's
+    batch: the 2¹⁸ pixel centres `lanes` of the 1024² frame (batch 1 of
+    `kerr-disk.passes`), 600 steps. One eager launch against
+    `kerr_scene.march_steps` on the card (every buffer bit for bit,
+    settled counts and issued slots included), the kernel's time by CUDA
+    events over `reps` launches on fresh copies of the batch, its bound
+    from the batch's own live steps (`cardbench/kerr_work`: operations at
+    the float32 peak or bytes at the bandwidth), the plain march's time,
+    and the march through a `DiskMarch` (eager, captured, replayed) equal
+    to the eager launch bit for bit."""
+    import torch
+    from cardbench import kerr_work, roofline
+    from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
+    from rrt_tpu_torch.ops import kerr_march as km
+    from rrt_tpu_torch.physics import kerr
+    from rrt_tpu_torch.render import kerr_scene as K
+    from rrt_tpu_torch.utils.card import fp32_peak_flops, max_sm_clock_mhz
+    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, dev)
+    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, dev)
+    lo, hi = lanes
+    o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), 30.0, 1024, 1024, device=dev,
+                          lanes=lanes)
+    st = kerr.make_state(o, d, bh)
+    base = K._lanes(st, torch.zeros_like(o), torch.zeros(
+        hi - lo, dtype=torch.bool, device=dev))
+    hole = km.hole_constants(bh, disk, 45.0)
+
+    def fresh():
+        return km.Lanes(*(t.clone() for t in base))
+
+    got = fresh()
+    km.march(got, n_steps, bh, disk, 45.0, hole)
+    want = fresh()
+    plain_ms = _event_once_ms(lambda: K.march_steps(want, n_steps, bh,
+                                                    disk, 45.0))
+    equal = {name: bool(torch.equal(getattr(got, name), getattr(want, name)))
+             for name in km.Lanes._fields}
+    times = []
+    for _ in range(reps):
+        runs = fresh()
+        times.append(_event_once_ms(lambda: km.march(
+            runs, n_steps, bh, disk, 45.0, hole)))
+    kernel_ms = float(np.median(times))
+    live = (n_steps - got.settled).cpu().numpy()
+    work = kerr_work.march_work(live, np.arange(lo, hi), lo, hi, hi - lo)
+    peak = fp32_peak_flops(dev, max_sm_clock_mhz())
+    bound_ms = 1e3 * roofline.bound_seconds(work, peak)
+    bound_by = ("operations" if work["ops"] / peak
+                >= work["bytes"] / roofline.PEAK_BYTES_PER_S else "bytes")
+    # compiled = eager: a DiskMarch's first batch (eager), its capture and
+    # replay, a replay, each equal to the eager launch above
+    march = K.DiskMarch(bh, disk)
+    compiled = []
+    for _ in range(3):
+        lanes_out, _ = march(o, d, n_steps)
+        compiled.append(all(bool(torch.equal(a, b))
+                            for a, b in zip(lanes_out, got)))
+    (call,) = march.calls.values()
+    row = dict(lanes=hi - lo, steps=n_steps, kernel_ms=kernel_ms,
+               kernel_ms_all=times, bound_ms=bound_ms, bound_by=bound_by,
+               roofline_pct=100.0 * bound_ms / kernel_ms, plain_ms=plain_ms,
+               equal=equal,
+               live_pct=100.0 * float(live.sum()) / ((hi - lo) * n_steps),
+               warp_live_pct=100.0 * float(live.sum()) / int(got.issued),
+               compiled_equal_eager=compiled, replays=call.replays)
+    print(f"[smoke] Kerr march kernel, {hi - lo} lanes (pixels [{lo}, {hi}) "
+          f"of 1024²), {n_steps} steps: {kernel_ms:.3f} ms a launch "
+          f"(median of {reps}: {[round(t, 3) for t in times]}), bound "
+          f"{bound_ms:.4f} ms ({row['roofline_pct']:.2f}% of the roofline), "
+          f"plain march {plain_ms:.1f} ms; equal to the plain version "
+          f"{equal}; live {row['live_pct']:.4f}% of lane-steps, "
+          f"{row['warp_live_pct']:.2f}% of issued slots; compiled = "
+          f"eager {compiled} ({call.replays} replays) ({card})")
+    if not (all(equal.values()) and all(compiled)):
+        raise AssertionError("Kerr march kernel differs from its plain "
+                             "version or from its replays")
+    return row
+
+
 def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
     """BASELINE config 5 at full width on the card (1024×1024, spin 0.9,
     mass 1, disk [3, 12], 600 RK4 steps, one batch of 1 << 20 lanes; 1 spp
     where config 5 has 16), with the structure checks of
-    tests/test_kerr.py; the frame in captured blocks of steps (the
-    default) and step by step, equal bit for bit, both timed; a 32×32,
-    300-step render on the card against the CPU; launches per RK4 step and
-    the device's busy share from eager profiles of 10- and 30-step renders,
-    and from a 40-step march whose blocks are replayed."""
+    tests/test_kerr.py; the frame through the march kernel (the default:
+    one eager launch, one run) and step by step (no run), equal bit for
+    bit, both timed;
+    the kernel against its plain version at the cell's batch
+    (`kerr_kernel_case`); the host launches and the device's busy share of
+    a 1024² march through a `DiskMarch`; a 32×32, 300-step render on the
+    card against the CPU."""
     import torch
     from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
+    from rrt_tpu_torch.ops import kerr_march as km
     from rrt_tpu_torch.render import kerr_scene as K
     from rrt_tpu_torch.utils.profile import profile_call
 
@@ -910,8 +1014,12 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
                 disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, d))
     bh, disk = hole(dev)
     K.render_image(64, 64, bh, disk, n_steps=4, device=dev)     # warm-up
+    km.reset_counts()
     wall, img, peak = _timed_call(dev, lambda: K.render_image(
         size, size, bh, disk, n_steps=n_steps, batch=1 << 20, device=dev))
+    # the frame's one batch: one eager launch of the march kernel (its
+    # DiskMarch is new), one run
+    launches = dict(eager=km.LAUNCHES, runs=km.kernel_runs())
     h, w = img.shape[:2]
     c = img[h // 2 - 2:h // 2 + 2, w // 2 - 2:w // 2 + 2]
     left, right = img[:, :w // 2].sum(), img[:, w // 2:].sum()
@@ -921,46 +1029,39 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
     checks = {"finite": bool(np.isfinite(img).all()),
               "shadow": bool(c.max() < 1e-3), "disk": bool(img.max() > 0.5),
               "corners": bool(min(corners) > 0.0), "asymmetry": bool(
-                  asym > 0.2)}
+                  asym > 0.2),
+              "one launch a batch": launches == dict(eager=1, runs=1)}
     n = size * size
-    # the same frame with the steps one by one (the march's blocks are
-    # CUDA graphs by default): equal bit for bit
+    # the same frame with the steps one by one: equal bit for bit, and no
+    # run of the kernel
+    km.reset_counts()
     ewall, eimg, _ = _timed_call(dev, lambda: K.render_image(
         size, size, bh, disk, n_steps=n_steps, batch=1 << 20, device=dev,
         graphs=False))
-    checks["blocks equal steps"] = bool(np.array_equal(img, eimg))
-    # launches a step and the busy share: eager at 10 and 30 steps; in
-    # captured blocks, 40 steps through a march whose blocks a first call
-    # captured
-    prof = {}
-    for steps in (10, 30):
-        prof[steps] = profile_call(lambda: K.render_image(
-            size, size, bh, disk, n_steps=steps, batch=1 << 20, device=dev,
-            graphs=False), device=dev)
-    per_step = (prof[30].launches - prof[10].launches) / 20
-    busy = prof[30].device_ms / (1e3 * prof[30].wall)
+    checks["kernel equals steps"] = bool(np.array_equal(img, eimg))
+    checks["no kernel step by step"] = km.LAUNCHES == km.kernel_runs() == 0
+    kernel = kerr_kernel_case(dev, card, n_steps)
     o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
                           (0.0, 1.0, 0.0), 30.0, size, size, device=dev)
     march = K.DiskMarch(bh, disk)
-    K.render_rays(o, d, bh, disk, n_steps=40, march=march)
+    for _ in range(2):
+        K.render_rays(o, d, bh, disk, n_steps=n_steps, march=march)
     gprof = profile_call(lambda: K.render_rays(
-        o, d, bh, disk, n_steps=40, march=march), device=dev)
+        o, d, bh, disk, n_steps=n_steps, march=march), device=dev)
     gbusy = gprof.device_ms / (1e3 * gprof.wall)
     del o, d, march
     print(f"[smoke] Kerr {size}x{size} 1spp {n_steps} RK4 steps, spin 0.9, "
-          f"disk [3, 12]: wall {wall:.2f} s in captured blocks of "
-          f"{K.MARCH_BLOCK} steps, {ewall:.2f} s step by step; "
+          f"disk [3, 12]: wall {wall:.2f} s through the march kernel, "
+          f"{ewall:.2f} s step by step; march kernel {launches}; "
           f"{n / wall:.4g} rays/s, "
           f"{n * n_steps / wall:.4g} RK4 steps/s, peak {peak:.1f} MiB; "
           f"checks {checks} (centre max {c.max():.3g}, max "
           f"{img.max():.3g}, corners {[round(float(x), 4) for x in corners]}"
-          f", asymmetry {asym:.3f}); {per_step:.1f} launches a step, "
-          f"30-step eager profile: wall {prof[30].wall:.3f} s, device "
-          f"{prof[30].device_ms:.1f} ms ({busy:.1%} busy); 40 steps in "
-          f"blocks: wall {gprof.wall:.3f} s, device {gprof.device_ms:.1f} "
-          f"ms ({gbusy:.1%} busy), {gprof.host_launches / 40:.2f} host "
-          f"launches a step ({card})")
-    print(f"[smoke] Kerr 30-step profile: {prof[30].report()}")
+          f", asymmetry {asym:.3f}); a replayed 1024² march: wall "
+          f"{gprof.wall:.4f} s, device {gprof.device_ms:.2f} ms "
+          f"({gbusy:.1%} busy), {gprof.host_launches} host launches "
+          f"({card})")
+    print(f"[smoke] Kerr replayed march profile: {gprof.report()}")
     if not all(checks.values()):
         raise AssertionError(f"Kerr structure checks {checks}")
     # the card against the CPU at 32x32, 300 steps
@@ -983,8 +1084,8 @@ def kerr_phase(dev, card, size=1024, n_steps=600, small=32):
         raise AssertionError("Kerr: card and CPU disagree")
     return dict(wall=wall, eager_wall=ewall, rays_per_s=n / wall,
                 steps_per_s=n * n_steps / wall, peak_mib=peak,
-                launches_per_step=per_step, busy=busy, graph_busy=gbusy,
-                graph_host_launches_per_step=gprof.host_launches / 40,
+                kernel=kernel, launches=launches, graph_busy=gbusy,
+                graph_host_launches=gprof.host_launches,
                 agree=float(agree.mean()))
 
 
@@ -1137,10 +1238,10 @@ def graphs_phase(dev, card, tmp, reps=5):
     of one size (the second replays the first's graph), an adaptive render
     across its batch boundaries, the 16-pass lifecycle render stopped at 8
     samples and resumed, `cbox_dense`, a flat render, the env-lit render,
-    and Kerr at 64×64 (the march in blocks). For each: eager and graph
-    walls in turns, host launches a pass, the busy share, peak memory above
-    what the case started with, the graph pool's reserved memory and the
-    capture time."""
+    and Kerr at 64×64 (its batch one captured graph). For each: eager and
+    graph walls in turns, host launches a pass, the busy share, peak memory
+    above what the case started with, the graph pool's reserved memory and
+    the capture time."""
     import gc
     import torch
     from rrt_tpu_torch.convert import disk_from_arrays, kerr_params_from_arrays
@@ -1304,11 +1405,11 @@ def graphs_phase(dev, card, tmp, reps=5):
             raise AssertionError(f"graphs, {name}: the graph renders "
                                  f"differ from the eager render")
 
-    # autograd inside a capture, as Kerr's `_rhs` uses it: the gradient of
-    # sum(x·x·x) through a CapturedCall (eager, then captured and replayed,
-    # then replayed) on new inputs each call, against eager autograd on the
-    # same inputs and against the formula 3·x·x (a rounding apart: autograd
-    # sums three products)
+    # autograd inside a capture, as the gradient step's backward uses it:
+    # the gradient of sum(x·x·x) through a CapturedCall (eager, then
+    # captured and replayed, then replayed) on new inputs each call, against
+    # eager autograd on the same inputs and against the formula 3·x·x (a
+    # rounding apart: autograd sums three products)
     from rrt_tpu_torch.utils.graphs import CapturedCall
     xs, gs = (torch.empty(4096, 3, device=dev) for _ in range(2))
 
@@ -1338,10 +1439,11 @@ def graphs_phase(dev, card, tmp, reps=5):
                              "eager autograd")
 
     # Kerr at 64x64: render_rays with a DiskMarch kept across calls (the
-    # first call runs each block eagerly, the second captures, the others
-    # replay), then render_image both ways
+    # first call launches the march kernel eagerly, the second captures
+    # the launch, the others replay), against the step-by-step march,
+    # then render_image both ways
     t_case = time.perf_counter()
-    ksize, steps = 64, 30        # a block of 20 and a block of 10
+    ksize, steps = 64, 30
     bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, dev)
     disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, dev)
     o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
@@ -1350,12 +1452,12 @@ def graphs_phase(dev, card, tmp, reps=5):
     held = torch.cuda.memory_allocated(dev) / mib
     _, ref, ref_peak = _timed_call(dev, lambda: K.render_rays(
         o, d, bh, disk, n_steps=steps))
-    first, got, cap_peak = _timed_call(dev, lambda: K.render_rays(
+    first, eager, cap_peak = _timed_call(dev, lambda: K.render_rays(
         o, d, bh, disk, n_steps=steps, march=march))
-    equal = [bool(torch.equal(got, ref))]
+    equal = [bool(torch.equal(eager, ref))]
     second, got, peak = _timed_call(dev, lambda: K.render_rays(
         o, d, bh, disk, n_steps=steps, march=march))
-    equal.append(bool(torch.equal(got, ref)))
+    equal.append(bool(torch.equal(got, eager)))
     ref_peak, cap_peak = ref_peak - held, max(cap_peak, peak) - held
     walls = {False: [], True: []}
     for g in (False, True, True, False) * ((reps + 1) // 2):
@@ -1364,7 +1466,7 @@ def graphs_phase(dev, card, tmp, reps=5):
         w, got, _ = _timed_call(dev, lambda: K.render_rays(
             o, d, bh, disk, n_steps=steps, march=march if g else None))
         walls[g].append(w)
-        equal.append(bool(torch.equal(got, ref)))
+        equal.append(bool(torch.equal(got, eager if g else ref)))
     img = {g: K.render_image(ksize, ksize, bh, disk, n_steps=steps,
                              device=dev, graphs=g) for g in (False, True)}
     equal.append(bool(np.array_equal(img[False], img[True])))
@@ -1381,11 +1483,13 @@ def graphs_phase(dev, card, tmp, reps=5):
                busy={str(g): p.device_ms / (1e3 * p.wall)
                      for g, p in prof.items()},
                device_ms={str(g): p.device_ms for g, p in prof.items()},
-               block=K.MARCH_BLOCK, seconds=time.perf_counter() - t_case)
+               seconds=time.perf_counter() - t_case)
     out["kerr 64x64"] = row
-    print(f"[smoke] graphs, Kerr {ksize}x{ksize} {steps} steps in blocks "
-          f"of {K.MARCH_BLOCK}: graph = eager bit for bit {row['equal']} "
-          f"(render_rays and render_image); eager {_spread(walls[False])}, "
+    print(f"[smoke] graphs, Kerr {ksize}x{ksize} {steps} steps, the batch "
+          f"one captured graph (the march one kernel launch): replays = the "
+          f"eager call = the step-by-step march bit for bit {row['equal']} "
+          f"(render_rays and render_image); step by step "
+          f"{_spread(walls[False])}, "
           f"graph {_spread(walls[True])}; first graph call {first:.4f} s, "
           f"second {second:.4f} s (capture {row['capture_s']:.4f} s); host launches a step "
           f"eager {row['host_launches_per_step']['False']:.1f}, graph "
@@ -1395,8 +1499,9 @@ def graphs_phase(dev, card, tmp, reps=5):
           f"with capture {cap_peak:.1f} MiB; case {row['seconds']:.1f} s "
           f"({card})")
     if not row["equal"]:
-        raise AssertionError("graphs, Kerr: the blocks differ from the "
-                             "step-by-step march")
+        raise AssertionError("graphs, Kerr: the captured march differs "
+                             "from its eager launch or the step-by-step "
+                             "march")
     return out
 
 
@@ -1648,8 +1753,8 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
     B around the all-reduce) against eager bit for bit (`grad_step_case`),
     and the eager sharded step against the unsharded one (rtol 1e-4 on the
     material leaves, 5e-3 on the hole's); `kerr_cli --sharded` at 64×64,
-    300 steps (the block's march in captured blocks) against the sharded
-    march step by step and the unsharded CLI, bit for bit."""
+    300 steps (the block's march one captured kernel launch) against the
+    sharded march step by step and the unsharded CLI, bit for bit."""
     import torch
     import torch.distributed as dist
     from rrt_tpu_torch import kerr_cli
@@ -1784,18 +1889,18 @@ def sharded_phase(dev, card, tmp, size=256, spp=16, n_rays=65536,
                                graphs=False, **kw)
         ke_wall = time.perf_counter() - t0
         img_u = kerr_cli.main(["-f", os.path.join(tmp, "ku.png")] + k_args)
-        if not (np.array_equal(img_s, img_e) and np.array_equal(img_s,
-                                                                img_u)):
+        if not (np.array_equal(img_s, img_e)
+                and np.array_equal(img_s, img_u)):
             raise AssertionError("kerr_cli --sharded differs from the "
                                  "sharded march step by step or the "
                                  "unsharded CLI")
         out["kerr_sharded_s"] = ks_wall
         out["kerr_sharded_step_by_step_s"] = ke_wall
         print(f"[smoke] kerr_cli --sharded {kerr_size}x{kerr_size} "
-              f"{kerr_steps} steps in captured blocks (capture included): "
-              f"{ks_wall:.2f} s, equal bit for bit to the sharded march "
-              f"step by step ({ke_wall:.2f} s) and to the unsharded CLI "
-              f"({card})")
+              f"{kerr_steps} steps through the captured march kernel (capture "
+              f"included): {ks_wall:.2f} s, equal bit for bit to the sharded "
+              f"march step by step ({ke_wall:.2f} s) and to the unsharded "
+              f"CLI ({card})")
     finally:
         pdist.shutdown()
     return out
@@ -2859,7 +2964,7 @@ def main(argv=None):
         two = two_process_phase(dev, card, tmp)
     tools_out = tools_phase(dev, card)
 
-    # ---- 4m. captured passes and march blocks against the eager path
+    # ---- 4m. captured passes and Kerr batches against the eager path
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         graphs_out = graphs_phase(dev, card, tmp)
 
@@ -3039,6 +3144,26 @@ def main(argv=None):
         **adjoints["65536"],
         "shape": [65536, 17],
         "shapes": adjoints,
+    }, {
+        "name": "kerr_march",
+        "route": "cuda",
+        "source": "rrt_tpu_torch/ops/csrc/kerr_march.cu",
+        "replaces": None,
+        "replaces_note": "the JAX package's jitted lax.scan of RK4 with "
+                         "jax.grad's dH (rrt_tpu/render/kerr_scene.py:186, "
+                         "rrt_tpu/physics/kerr.py:121): no Pallas kernel",
+        # the main path's 1024² frame (one batch): eager launches and the
+        # kernel's own runs
+        "launches": kerr_out["launches"]["eager"],
+        "runs": kerr_out["launches"]["runs"],
+        "equal": kerr_out["kernel"]["equal"],
+        "ms": kerr_out["kernel"]["kernel_ms"],
+        "plain_ms": kerr_out["kernel"]["plain_ms"],
+        "bound_ms": kerr_out["kernel"]["bound_ms"],
+        "bound_by": kerr_out["kernel"]["bound_by"],
+        "library_ms": None,
+        "shape": [kerr_out["kernel"]["lanes"], kerr_out["kernel"]["steps"]],
+        "warp_live_pct": kerr_out["kernel"]["warp_live_pct"],
     }]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

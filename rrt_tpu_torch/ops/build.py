@@ -78,6 +78,14 @@ def _declare_row_adjoint(lib):
     lib.rrt_row_adjoint_error_string.restype = ctypes.c_char_p
 
 
+def _declare_kerr_march(lib):
+    ll, fp = ctypes.c_longlong, ctypes.POINTER(ctypes.c_float)
+    lib.rrt_kerr_march.argtypes = [_vp] * 10 + [ll, _i, fp, _i, _i, _vp]
+    lib.rrt_kerr_march.restype = _i
+    lib.rrt_kerr_march_error_string.argtypes = [_i]
+    lib.rrt_kerr_march_error_string.restype = ctypes.c_char_p
+
+
 @dataclasses.dataclass(frozen=True)
 class Family:
     """One library: its sources, and the C signatures it exports."""
@@ -95,6 +103,8 @@ FAMILIES: Dict[str, Family] = {
                        _declare_threefry),
     "row_adjoint": Family("row_adjoint", (_CSRC / "row_adjoint.cu",),
                           _declare_row_adjoint),
+    "kerr_march": Family("kerr_march", (_CSRC / "kerr_march.cu",),
+                         _declare_kerr_march),
 }
 
 # per family, what its last build in this process printed, how long it

@@ -516,7 +516,7 @@ def run_card_checks(checks, mesh, w: int, h: int) -> dict:
                    + step.update.capture_seconds)
     if "full_kerr" in checks:
         # in turns with the unsharded frame on this card; every frame
-        # captures its march blocks anew
+        # captures its batch graph anew
         walls = {"sharded": [], "unsharded": []}
         imgs = []
         for label in ("sharded", "unsharded", "unsharded", "sharded"):

@@ -10,12 +10,13 @@ the Boyer–Lindquist coordinate singularities:
 with r(x,y,z) the Kerr radius, r² = ½(ρ²−a²) + √(¼(ρ²−a²)² + a² z²).
 
 Null rays follow Hamilton's equations of ℋ(x,p) = ½ g^{μν} p_μ p_ν, by RK4
-in an affine parameter. ∂ℋ/∂p and ∂ℋ/∂x come from torch autograd of the
-closed-form scalar, as the JAX package takes them from `jax.grad`: no
-Christoffel symbol is written out. The op forms and epsilons are the JAX
-module's, in float32. At a = 0 this is exact GR Schwarzschild (M = r_s/2),
-not the reference's chord stepper of `physics/schwarzschild.py`, which
-bends rays half as much.
+in an affine parameter. ∂ℋ/∂p and ∂ℋ/∂x are the closed-form scalar's
+gradient written out by hand (`_rhs`), where the JAX package takes them
+from `jax.grad`: no Christoffel symbol is written out, and `_rhs` is the
+plain version of the Kerr march kernel's (`ops/csrc/kerr_march.cu`). The
+op forms and epsilons of ℋ are the JAX module's, in float32. At a = 0
+this is exact GR Schwarzschild (M = r_s/2), not the reference's chord
+stepper of `physics/schwarzschild.py`, which bends rays half as much.
 
 Each RK4 step gives one straight chord, which callers test against the
 accretion disk; rays inside the horizon are captured and far rays
@@ -97,15 +98,53 @@ def init_momentum(x3, d3, mass, a):
 
 
 def _rhs(x3, p3, pt, mass, a):
-    """Hamilton's equations: (∂ℋ/∂p, −∂ℋ/∂x), both from one autograd pass
-    over the summed ℋ. Works under `torch.no_grad()` too; the results carry
-    no graph."""
-    with torch.enable_grad():
-        x = x3.detach().requires_grad_(True)
-        p = p3.detach().requires_grad_(True)
-        dH_dx, dH_dp = torch.autograd.grad(
-            hamiltonian(x, p, pt, mass, a).sum(), (x, p))
-    return dH_dp, -dH_dx
+    """Hamilton's equations: (∂ℋ/∂p, −∂ℋ/∂x), written out by hand.
+
+    With b = ρ² − a², D = √(b²/4 + a²z² + ε), r² = b/2 + D, den = r⁴ +
+    a²z² + ε, H = M r³/den, s = r² + a², l as in `hamiltonian` and
+    lp = l·p − p_t:
+      ∂ℋ/∂p_i = p_i − c l_i,                       c = 2H lp;
+      ∂r²/∂x_i = g_i = f x_i (i = x, y), (f + a²/D) z,  f = 1 + b/(2D);
+      ∂H/∂x_i = hr g_i − [i = z] 2H a² z/den,      hr = H (3/(2r²) − 2r²/den);
+      ∂lp/∂x_i = k g_i + ((r p_x − a p_y)/s, (r p_y + a p_x)/s, p_z/r),
+        k = (u/(2r) − p_x l_x − p_y l_y)/s − p_z l_z/(2r²), u = p_x x + p_y y;
+      −∂ℋ/∂x_i = lp² ∂H/∂x_i + c ∂lp/∂x_i.
+    The march never differentiates it (no graph is made). This is the
+    plain version of `ops/csrc/kerr_march.cu`'s `rhs`, op for op in its
+    order: every division is by a tensor (on a card PyTorch turns a
+    division by a Python number into a multiply by its reciprocal), so
+    both round alike. r ≥ 1e-20 wherever a lane marches, so the clamp of
+    l_z's r passes ∂r through."""
+    x, y, z = x3.unbind(-1)
+    px, py, pz = p3.unbind(-1)
+    a2 = a * a
+    az2 = a2 * z * z
+    b = x * x + y * y + z * z - a2
+    d = torch.sqrt(0.25 * b * b + az2 + 1e-30)
+    r2 = 0.5 * b + d
+    r = torch.sqrt(r2)
+    den = r2 * r2 + az2 + 1e-30
+    h = mass * r2 * r / den
+    s = r2 + a2
+    lx = (r * x + a * y) / s
+    ly = (r * y - a * x) / s
+    rz = torch.clamp(r, min=1e-20)
+    lz = z / rz
+    lp = -pt + px * lx + py * ly + pz * lz
+    c = 2.0 * h * lp
+    f = 1.0 + b / (d + d)
+    gx = f * x
+    gy = f * y
+    gz = (f + a2 / d) * z
+    hr = h * (1.5 * den - 2.0 * r2 * r2) / (r2 * den)
+    k = (px * x + py * y - 2.0 * r * (px * lx + py * ly)) / (2.0 * r * s) \
+        - pz * lz / (2.0 * r * rz)
+    w = lp * lp * hr + c * k
+    fx = w * gx + c * (r * px - a * py) / s
+    fy = w * gy + c * (r * py + a * px) / s
+    fz = w * gz + c * pz / rz - lp * lp * (2.0 * h * a2 * z / den)
+    return (torch.stack([px - c * lx, py - c * ly, pz - c * lz], -1),
+            torch.stack([fx, fy, fz], -1))
 
 
 def rk4_step(x3, p3, pt, mass, a, dlam):

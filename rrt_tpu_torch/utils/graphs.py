@@ -9,7 +9,7 @@ their one collective, which runs eagerly between their replays on the
 static buffers they share: the renderer's sharded pass (`PassRunner`:
 the rank half, the gather, the accumulate half), the sharded gradient
 step (`LossAndGrad(mesh=)`: half A, the all-reduce, half B) and the
-sharded Kerr batch (its block's march in `DiskMarch` blocks, then the
+sharded Kerr batch (its block rendered as a `DiskMarch` graph, then the
 gather). No collective is captured there, so any backend serves them,
 gloo's host copies included. The per-trace forward
 (`render/integrator.Forward` with a mesh, the counterpart of the JAX
@@ -47,8 +47,8 @@ call replays. So a call made once costs no capture. Values that change
 from call to call must be device tensors that `fn` reads; host→device
 copies and host reads inside `fn` break the capture. A capture that fails
 raises, naming the innermost line of this package it was in; nothing
-falls back to eager. Autograd inside `fn` (Kerr's `_rhs`, the gradient
-step's backward) is captured in either mode.
+falls back to eager. Autograd inside `fn` (the gradient step's backward)
+is captured in either mode.
 
 Random numbers need nothing of a graph: `fn` derives its threefry keys
 on the device from its static buffers (`utils.prng`), so a replay draws

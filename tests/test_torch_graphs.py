@@ -1,7 +1,8 @@
-"""Captured passes and march blocks on the CPU: `Renderer._pass_fn` (the
+"""Captured passes and Kerr batches on the CPU: `Renderer._pass_fn` (the
 port of the JAX package's jitted pass, rrt_tpu/render/renderer.py:85-123),
 `utils/graphs.CapturedCall` and `render/kerr_scene.DiskMarch` (the jitted
-Kerr batch, rrt_tpu/render/kerr_scene.py:186).
+Kerr batch, rrt_tpu/render/kerr_scene.py:186: one captured march a
+batch, on the CPU the kernel's plain version).
 
 The CPU has no CUDA graphs, so a stand-in takes the graph's place: the
 warm-up runs the function, the "capture" runs it as a capture records it
@@ -35,7 +36,7 @@ from rrt_tpu_torch.render import renderer as renderer_mod
 from rrt_tpu_torch.render.renderer import PassRunner, Renderer
 from rrt_tpu_torch.scene.build import load_scene
 from rrt_tpu_torch.scenes import CBOX_SPHERES
-from rrt_tpu_torch.utils import profile
+from rrt_tpu_torch.utils import prng, profile
 from rrt_tpu_torch.utils.config import BlackHoleConfig, Illum, RenderConfig
 from rrt_tpu_torch.utils.graphs import CapturedCall
 from test_torch_hostmods import jax_config
@@ -275,29 +276,75 @@ def test_graph_cells_match_jax_render_cell(stand_in):
 
 
 def test_kerr_blocks_equal_the_step_by_step_march(stand_in):
-    """`DiskMarch` over 2·MARCH_BLOCK + 10 steps (two whole blocks and a
-    block of 10: the first whole block runs eagerly, the second is captured
-    and replayed, and a second call replays the whole blocks and captures
-    the block of 10) equals the step-by-step march bit for bit: state,
-    disk radiance and hit mask."""
-    steps = 2 * K.MARCH_BLOCK + 10
+    """`DiskMarch` marches a batch as one call of the Kerr march (on the
+    CPU its plain version) through one `CapturedCall` per (batch shape,
+    steps): three marches of one batch (the first eager, the second
+    captured and replayed, the third replayed) each equal the
+    step-by-step march bit for bit: state, disk radiance, hit mask and
+    the three counters (live lane-steps, lane-steps, issued lane-slots).
+    Another step count is a call of its own."""
+    steps = 50
     bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, "cpu")
     disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, "cpu")
     o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
                           (0.0, 1.0, 0.0), 30.0, 12, 12, device="cpu")
-    want = K.trace_disk(o, d, bh, disk, steps)
+    want_counts = torch.zeros(3, dtype=torch.int64)
+    want = K.trace_disk(o, d, bh, disk, steps, counts=want_counts)
     march = K.DiskMarch(bh, disk)
     march._pool = "stand-in pool"
-    for _ in range(2):
-        got = K.trace_disk(o, d, bh, disk, steps, march=march)
+    for _ in range(3):
+        counts = torch.zeros(3, dtype=torch.int64)
+        got = K.trace_disk(o, d, bh, disk, steps, march=march,
+                           counts=counts)
         for a, b in zip((*got[0], got[1], got[2]),
                         (*want[0], want[1], want[2])):
             assert torch.equal(a, b)
-    assert [(s, c.replays) for (_, s), c in march.calls.items()] == [
-        (K.MARCH_BLOCK, 3), (10, 1)]
+        assert torch.equal(counts, want_counts)
+    assert [(s, c.calls, c.replays) for (_, s), c in march.calls.items()] \
+        == [(steps, 3, 2)]
+    live, run, issued = want_counts.tolist()
+    # 144 lanes are 5 warps: the ragged warp's slots count too
+    assert 0 < live < issued <= 160 * steps and run == 144 * steps
     assert bool(want[2].any())     # some lanes reach the disk
+    K.trace_disk(o, d, bh, disk, 10, march=march)
+    assert [s for _, s in march.calls] == [steps, 10]
     with pytest.raises(ValueError, match="another hole"):
         K.trace_disk(o, d, bh, disk, steps, r_escape=30.0, march=march)
+
+
+@pytest.mark.parametrize("jittered", [False, True])
+def test_kerr_camera_rays_equal_look_at_rays(stand_in, jittered):
+    """`DiskMarch.camera_rays` writes a batch's camera rays through one
+    `CapturedCall` per (lanes, width, height, fov, jittered), reading the
+    batch's offset, the camera and the sample's whole jitter from static
+    buffers: at three offsets (eager, captured and replayed, replayed)
+    they equal `look_at_rays` of the batch's pixels, jittered by the
+    batch's window of the draw, bit for bit, in the march's static rays,
+    which the march then takes without a copy."""
+    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, "cpu")
+    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, "cpu")
+    march = K.DiskMarch(bh, disk)
+    march._pool = "stand-in pool"
+    w, h, m = 12, 10, 40
+    frame = torch.tensor([(0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0)])
+    key = prng.key(3, "cpu")
+    draw = prng.uniform(key, (w * h, 2)) if jittered else None
+    for lo in (40, 0, 80):
+        o, d = march.camera_rays(frame, 30.0, w, h, draw, lo, m)
+        window = (prng.uniform(key, (w * h, 2), window=(0, lo, lo + m))
+                  if jittered else None)
+        want = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                              (0.0, 1.0, 0.0), 30.0, w, h, window, "cpu",
+                              (lo, lo + m))
+        assert torch.equal(o, want[0]) and torch.equal(d, want[1])
+        bufs = march._buffers[(m,)]
+        assert bufs[0] is o and bufs[1] is d
+        lanes, _ = march(o, d, 5)
+        assert lanes is bufs[2]
+    ((key_, (_, _, jit, call)),) = march.cameras.items()
+    assert key_ == (m, w, h, 30.0, jittered) and (jit is None) != jittered
+    assert (call.calls, call.replays) == (3, 2)
 
 
 def test_a_failed_capture_raises_where_it_broke(monkeypatch):

@@ -1,18 +1,18 @@
-"""The CUDA kernels against their plain PyTorch versions, on a card: the
-trace kernel (Cornell box, a 3-part scene and the 14-part BVH-scale
-scene; ragged lane counts from spread origins and from one point, masked
-lanes, a scene whose box tables do not fit in shared memory, launches
-back to back, each in the default build and in the builds that fix its
-traversal lane by lane and cooperative), the differentiable trace on the
-kernel's primal against the CPU's, the toolchain probe, the eight cost
-micro-probes and the threefry kernel (uniforms and keys, in a graph too);
-the passes, Kerr's march blocks and the gradient step
-captured as CUDA graphs against their eager runs, unsharded and sharded
-over an NCCL group of one rank (two graphs around each collective); the
-program's device spans as event pairs inside a replayed pass, against a
-wall around the replay and the profiler's device time; the row-adjoint
-kernel of the BSDF gathers against its plain version, bit for bit from
-run to run, and inside a replayed gradient step.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the trace
+kernel (Cornell box, a 3-part scene and the 14-part BVH-scale scene; ragged
+lane counts from spread origins and from one point, masked lanes, a scene
+whose box tables do not fit in shared memory, launches back to back, each in
+the default build and in the builds that fix its traversal lane by lane and
+cooperative), the differentiable trace on the kernel's primal against the
+CPU's, the toolchain probe, the eight cost micro-probes and the threefry
+kernel (uniforms and keys, in a graph too); the Kerr kernels against their
+plain versions; the passes, Kerr's batches and the gradient step captured as
+CUDA graphs against their eager runs, unsharded and sharded over an NCCL
+group of one rank (two graphs around each collective); the program's device
+spans as event pairs inside a replayed pass, against a wall around the
+replay and the profiler's device time; the row-adjoint kernel of the BSDF
+gathers against its plain version, bit for bit from run to run, and inside a
+replayed gradient step.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so that the machine with the card, which has none, can run it:
@@ -489,42 +489,123 @@ def test_graph_passes_equal_eager(device, case):
     assert sum(p.call.replays for p in graph._pass_fns.values()) >= 2
 
 
-@pytest.mark.cuda
-def test_kerr_march_blocks_equal_eager(device):
-    """The Kerr march in captured blocks (`DiskMarch`, blocks of 20 and a
-    remainder of 10) equals the step-by-step march bit for bit, on first
-    use and on replay; render_image's default on a card is the blocks."""
+def _kerr_scene(device):
     from rrt_tpu_torch.convert import (disk_from_arrays,
                                        kerr_params_from_arrays)
+    return (kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, device),
+            disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, device))
+
+
+def _same_kerr_march(got, want):
+    """(state, radiance, hit) of two marches equal bit for bit."""
+    for a, b in zip((*got[0], got[1], got[2]), (*want[0], want[1], want[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kerr_march_blocks_equal_eager(device):
+    """The Kerr batch (initial state, the march as one kernel launch,
+    shading) captured in a `DiskMarch` (eager at its first march, captured
+    and replayed at its second, replayed at its third) equals the
+    step-by-step march on the card bit for bit: state, radiance, hit mask
+    and the three counters; one `CapturedCall` for the shape, one eager
+    launch, every run counted by the kernel. render_image's default on a
+    card is the kernel, its image the step-by-step one's bit for bit."""
+    from rrt_tpu_torch.ops import kerr_march as km
     from rrt_tpu_torch.render import kerr_scene as K
-    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, device)
-    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, device)
+    bh, disk = _kerr_scene(device)
     o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
                           (0.0, 1.0, 0.0), 30.0, 32, 32, device=device)
-    want = K.render_rays(o, d, bh, disk, n_steps=130)
+    want_counts = torch.zeros(3, dtype=torch.int64, device=device)
+    want = K.trace_disk(o, d, bh, disk, 130, counts=want_counts)
     march = K.DiskMarch(bh, disk)
-    for _ in range(2):
-        got = K.render_rays(o, d, bh, disk, n_steps=130, march=march)
-        assert torch.equal(got, want)
-    assert [c.replays for c in march.calls.values()] == [11, 1]
+    km.reset_counts()
+    for _ in range(3):
+        counts = torch.zeros_like(want_counts)
+        got = K.trace_disk(o, d, bh, disk, 130, march=march, counts=counts)
+        _same_kerr_march(got, want)
+        assert torch.equal(counts, want_counts)
+    assert km.kernel_runs() == 3 and km.LAUNCHES == 1
+    (call,) = march.calls.values()
+    assert call.graph is not None and (call.calls, call.replays) == (3, 2)
     img = K.render_image(32, 32, bh, disk, n_steps=130, device=device)
     np.testing.assert_array_equal(img, K.render_image(
         32, 32, bh, disk, n_steps=130, device=device, graphs=False))
 
 
 @pytest.mark.cuda
+def test_kerr_march_kernel_equals_plain_version(device):
+    """The Kerr march kernel against its plain version on the card, on a
+    ragged batch of 1,000 lanes: one launch of the march
+    (`kerr_march.march`), a tenth of the lanes settled on entry
+    (captured, escaped or on the disk, with radiance), against
+    `kerr_scene.march_steps`. Every buffer bit for bit, settled counts and
+    issued lane-slots included; no steps changes nothing; the launches
+    equal the kernel's runs; the wrapper refuses a buffer on the CPU."""
+    from rrt_tpu_torch.ops import kerr_march as km
+    from rrt_tpu_torch.physics import kerr
+    from rrt_tpu_torch.render import kerr_scene as K
+    bh, disk = _kerr_scene(device)
+    km.reset_counts()
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), 30.0, 40, 25, device=device)
+    st = kerr.make_state(o, d, bh)
+    flags = (torch.rand(3, 1000, generator=gen) < 0.033).to(device)
+    acc = torch.where(flags[2][:, None], 0.5, 0.0).to(device).expand(
+        1000, 3).contiguous()
+    lanes = K._lanes(st._replace(captured=flags[0], escaped=flags[1]),
+                     acc, flags[2])
+    for steps in (0, 200):
+        got, want = (km.Lanes(*(t.clone() for t in lanes))
+                     for _ in range(2))
+        km.march(got, steps, bh, disk, 45.0)
+        K.march_steps(want, steps, bh, disk, 45.0)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if steps == 0:
+            assert int(got.issued) == 0
+            assert all(torch.equal(a, b) for a, b in zip(got, lanes))
+    assert 0 < int(got.settled.min()) and int(got.issued) > 0
+    assert bool(got.hit[~flags[2]].any())
+    assert km.LAUNCHES == km.kernel_runs() == 2
+    with pytest.raises(ValueError, match="^p: expected"):
+        km.march(got._replace(p=got.p.cpu()), 10, bh, disk, 45.0)
+
+
+@pytest.mark.cuda
+def test_kerr_env_lit_batches_equal_eager(device):
+    """With an environment map the captured Kerr batch shades by the
+    map's lookups inside its graph: render_image through it, twice
+    (eager, then captured and replayed), equals the step-by-step render
+    bit for bit, and a march made without the map refuses it."""
+    from rrt_tpu_torch.render import kerr_scene as K
+    from rrt_tpu_torch.scene.envmap import build_envmap
+    bh, disk = _kerr_scene(device)
+    img = np.random.default_rng(5).uniform(0.1, 2.0, (16, 32, 3))
+    env = build_envmap(img, device)
+    march = K.DiskMarch(bh, disk, env=env)
+    kw = dict(n_steps=100, batch=512, device=device, env=env)
+    want = K.render_image(32, 32, bh, disk, graphs=False, **kw)
+    for _ in range(2):
+        np.testing.assert_array_equal(
+            K.render_image(32, 32, bh, disk, march=march, **kw), want)
+    assert next(iter(march.calls.values())).replays == 3
+    with pytest.raises(ValueError, match="environment"):
+        K.render_image(32, 32, bh, disk, march=K.DiskMarch(bh, disk), **kw)
+
+
+@pytest.mark.cuda
 def test_kerr_render_image_keeps_one_march(device):
     """Two `render_image` calls through one caller's `DiskMarch` (2 spp,
-    two batches a sample, blocks of 20): its one block shape is captured
-    once, in the first call, and replayed after; each image, its live
-    lane counters and its spans equal the eager march's, the counters
-    exactly, the image bit for bit."""
-    from rrt_tpu_torch.convert import (disk_from_arrays,
-                                       kerr_params_from_arrays)
+    two batches a sample): its one (batch shape, steps) is captured once,
+    in the first call, and replayed by every later batch, and so is its
+    one graph of the batches' camera rays; each image equals the
+    step-by-step march's bit for bit, its three lane counters exactly,
+    one "kerr.march" span a batch."""
     from rrt_tpu_torch.render import kerr_scene as K
     from rrt_tpu_torch.utils import stats
-    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, device)
-    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, device)
+    bh, disk = _kerr_scene(device)
     march = K.DiskMarch(bh, disk)
     kw = dict(spp=2, n_steps=60, batch=512, device=device)
     stats.reset()
@@ -533,19 +614,22 @@ def test_kerr_render_image_keeps_one_march(device):
             img = K.render_image(32, 32, bh, disk, seed=seed, march=march,
                                  **kw)
             counted = dict(got.counters)
-            assert got.device.count("kerr.march") == 2 * 2 * 3
+            assert got.device.count("kerr.march") == 2 * 2
             stats.reset()
             want = K.render_image(32, 32, bh, disk, seed=seed, graphs=False,
                                   **kw)
         np.testing.assert_array_equal(img, want)
         assert counted == got.counters
-        assert 0 < counted["kerr.lanes_live"] < counted["kerr.lanes_run"] \
+        assert 0 < counted["kerr.lanes_live"] < counted[
+            "kerr.lanes_issued"] <= counted["kerr.lanes_run"] \
             == 2 * 1024 * 60
         assert got.device.count("kerr.march") == 4
         stats.reset()
-    assert len(march.calls) == 1
+    assert len(march.calls) == len(march.cameras) == 1
     call = next(iter(march.calls.values()))
-    assert call.graph is not None and call.replays == 2 * 12 - 1
+    assert call.graph is not None and call.replays == 2 * 4 - 1
+    rays = next(iter(march.cameras.values()))[3]
+    assert rays.graph is not None and rays.replays == 2 * 4 - 1
     with pytest.raises(ValueError, match="another hole"):
         K.render_image(32, 32, bh.to(device), disk, seed=3, march=march,
                        **kw)
@@ -739,15 +823,12 @@ def test_sharded_gradient_step_equals_eager(device, nccl1):
 @pytest.mark.cuda
 def test_sharded_kerr_blocks_equal_step_by_step(device, nccl1):
     """`render_image(sharding=)` over an NCCL group of one rank, its
-    block's march in captured blocks (the default on a card) and the
-    gather after it, equals the step-by-step sharded image and the
-    unsharded image bit for bit, over two batches of one shape."""
-    from rrt_tpu_torch.convert import (disk_from_arrays,
-                                       kerr_params_from_arrays)
+    block's march one captured kernel launch a batch (the default on a
+    card) and the gather after it, over two batches of one shape, equals
+    the step-by-step sharded image and the unsharded image bit for bit."""
     from rrt_tpu_torch.parallel import sharding as sh
     from rrt_tpu_torch.render import kerr_scene as K
-    bh = kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, 0.9, device)
-    disk = disk_from_arrays(3.0, 12.0, (1.0, 0.85, 0.6), 2.0, True, device)
+    bh, disk = _kerr_scene(device)
     kw = dict(width=32, height=32, bh=bh, disk=disk, n_steps=130,
               batch=512, device=device)
     sharding = sh.batch_sharding(nccl1)

@@ -1,7 +1,10 @@
 """The port's Kerr geodesics and accretion-disk renderer against the JAX
 package (rrt_tpu/physics/kerr.py, rrt_tpu/render/kerr_scene.py) on seeded
-inputs, the physics invariants of tests/test_kerr.py at small sizes, and
-the Kerr CLI."""
+inputs, the physics invariants of tests/test_kerr.py at small sizes, the
+Kerr CLI, the hand-derived ∂ℋ against autograd of ℋ, and the march's
+plain version (`render/kerr_scene.march_steps`, the Kerr march kernel's
+reference): its settled lanes' zero steps, its issued lane-slots and the
+wrapper's checks (`ops/kerr_march`)."""
 import os
 
 import jax.numpy as jnp
@@ -13,6 +16,7 @@ from rrt_tpu.physics import kerr as jkerr
 from rrt_tpu.render import kerr_scene as JK
 from rrt_tpu_torch import convert, kerr_cli
 from rrt_tpu_torch.io.png import read_png
+from rrt_tpu_torch.ops import kerr_march as km
 from rrt_tpu_torch.physics import kerr
 from rrt_tpu_torch.render import kerr_scene as K
 
@@ -70,7 +74,7 @@ def test_hamiltonian_and_momentum_match_jax():
 
 
 def test_rhs_and_rk4_match_jax():
-    """Hamilton's equations by torch autograd against jax.grad, under
+    """Hamilton's equations, written out by hand, against jax.grad, under
     no_grad too, and RK4 steps with a scalar and a per-lane step."""
     jbh, bh = _holes()
     x, p = _phase_space(seed=1)
@@ -248,3 +252,123 @@ def test_scene_constructors_default_to_the_card(fn):
     unless the caller asks for the CPU, as the port's entry points do."""
     import inspect
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def _region_points(spin, region, n=256, seed=0):
+    """Seeded hole-frame points of one region and momenta: far out (4–40),
+    just outside capture (1.02 r_h to 1.2 r_h + 0.3), on the spin axis
+    and in the equatorial plane outside the ring (1.1 r_h to 20)."""
+    rng = np.random.default_rng(seed)
+    rh = 1.0 + np.sqrt(1.0 - spin * spin)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lo, hi = dict(far=(4.0, 40.0), near=(1.02 * rh, 1.2 * rh + 0.3)).get(
+        region, (1.1 * rh, 20.0))
+    rad = rng.uniform(lo, hi, n)
+    x = d * rad[:, None]
+    if region == "axis":
+        x = np.zeros((n, 3))
+        x[:, 2] = rad * np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    elif region == "plane":
+        x[:, 2] = 0.0
+        x[:, :2] *= (rad / np.linalg.norm(x[:, :2], axis=1))[:, None]
+    return x, rng.normal(size=(n, 3))
+
+
+def _autograd_rhs(x, p, pt, mass, a):
+    """(∂ℋ/∂p, −∂ℋ/∂x) by autograd of `hamiltonian`."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        pg = p.detach().requires_grad_(True)
+        dx, dp = torch.autograd.grad(
+            kerr.hamiltonian(xg, pg, pt, mass, a).sum(), (xg, pg))
+    return dp, -dx
+
+
+@pytest.mark.parametrize("region", ["far", "near", "axis", "plane"])
+@pytest.mark.parametrize("spin", [0.0, 0.5, 0.9])
+def test_hand_derived_rhs_equals_autograd(spin, region):
+    """`kerr._rhs` (∂ℋ written out by hand) against autograd of ℋ: in
+    float64 to 1e-12 of the largest component (found: 1e-15); in float32
+    to 4e-6 of it. Both float32 evaluations round the same derivative
+    along different op orders, each found within 1e-6 of the float64
+    value at these points (autograd's own up to 9.8e-7), so they part by
+    at most about twice that."""
+    x, p = _region_points(spin, region)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 4e-6)):
+        args = [torch.tensor(v, dtype=dtype) for v in (x, p, -1.0, 1.0,
+                                                         spin)]
+        with torch.no_grad():
+            got = kerr._rhs(*args)
+        for g, w in zip(got, _autograd_rhs(*args)):
+            assert g.dtype == dtype and not g.requires_grad
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= tol * scale
+
+
+def _lanes(size=12, steps=60, spin=0.9):
+    bh = convert.kerr_params_from_arrays((0.0, 0.0, 0.0), 1.0, spin, "cpu")
+    disk = K.default_disk(1.0, device="cpu")
+    o, d = K.look_at_rays((0.0, 3.0, 22.0), (0.0, 0.0, 0.0),
+                          (0.0, 1.0, 0.0), 30.0, size, size, device="cpu")
+    st = kerr.make_state(o, d, bh)
+    lanes = K._lanes(st, torch.zeros(o.shape), torch.zeros(
+        o.shape[0], dtype=torch.bool))
+    return bh, disk, lanes
+
+
+def test_settled_lanes_zero_steps_change_nothing():
+    """The kernel stops a lane at the step where it settles (captured,
+    escaped or on the disk); the plain march keeps stepping it with a
+    zero step. Stopping changes no answer: after the step where each lane
+    settles, its state, radiance and flags already equal the whole
+    march's, bit for bit, and its count of settled steps is the steps
+    left."""
+    steps = 150
+    bh, disk, lanes = _lanes(steps=steps)
+    final = km.Lanes(*(t.clone() for t in lanes))
+    K.march_steps(final, steps, bh, disk, 45.0)
+    live = steps - final.settled
+    assert 0 < int(live.min()) < int(live.max()) < steps   # all settled
+    st = kerr.MarchState(*lanes[:5])
+    acc, hit = lanes.acc, lanes.hit
+    for k in range(steps + 1):
+        stop = live == k
+        for got, want in zip((*st, acc, hit), final[:7]):
+            assert torch.equal(got[stop], want[stop])
+        if k < steps:
+            st, acc, hit = K._disk_step(st, acc, hit, bh, disk, 45.0)
+
+
+def test_issued_lane_slots_are_the_warps_most_steps():
+    """`kerr.lanes_issued`: 32 × the most live steps of each group of 32
+    consecutive lanes, a ragged last group counting 32 slots; the plain
+    march adds that of its lanes' live steps to `issued`."""
+    live = torch.tensor([3] * 31 + [7] + [0] * 32 + [2, 5])
+    assert int(km.warp_issued(live)) == 32 * (7 + 0 + 5)
+    assert int(km.warp_issued(torch.zeros(0, dtype=torch.int32))) == 0
+    bh, disk, lanes = _lanes(size=10)
+    lanes.issued.fill_(11)
+    K.march_steps(lanes, 60, bh, disk, 45.0)
+    left = torch.nn.functional.pad(60 - lanes.settled, (0, 28))
+    assert int(lanes.issued) == 11 + 32 * int(
+        left.reshape(-1, 32).amax(1).sum())
+
+
+@pytest.mark.parametrize("fault", ["device", "dtype", "shape", "strided",
+                                   "issued"])
+def test_march_wrapper_checks_its_buffers(fault):
+    """`ops/kerr_march.march` raises on a buffer on another device, of
+    another dtype or shape, strided, or a wrong `issued` counter, and on a
+    device it has no march for."""
+    bh, disk, lanes = _lanes(size=4)
+    bad = {"device": dict(p=lanes.p.to("meta")),
+           "dtype": dict(settled=lanes.settled.long()),
+           "shape": dict(acc=lanes.acc[:-1]),
+           "strided": dict(x=lanes.x.t().contiguous().t()),
+           "issued": dict(issued=torch.zeros(2, dtype=torch.int64))}[fault]
+    with pytest.raises(ValueError, match=f"^{next(iter(bad))}: expected"):
+        km.march(lanes._replace(**bad), 10, bh, disk, 45.0)
+    with pytest.raises(ValueError, match="no Kerr march for device meta"):
+        km.march(km.Lanes(*(t.to("meta") for t in lanes)), 10, bh, disk,
+                 45.0)

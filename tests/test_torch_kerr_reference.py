@@ -119,12 +119,17 @@ def test_control_and_faults_exceed_the_limits(settings, reference, limits,
 def test_spans_and_live_lane_counters(settings, reference):
     """Under `stats.collect()` a call records its span "kerr.frame", one
     "kerr.march" a batch, and counts as live the lane-steps that the
-    reference's march begins still marching, of every lane-step run."""
+    reference's march begins still marching, of every lane-step run, and
+    as issued 32 × the most of them in each group of 32 consecutive lanes
+    (a sample's 256 pixels are one batch)."""
     _, got = _port(settings)
     _, live = reference()
     assert got["frames"] == 1 and got["march"] == SPP
     assert got["march_ms"] > 0
-    assert got["counters"] == {"kerr.lanes_live": float(live.sum()),
-                               "kerr.lanes_run": float(live.numel() * STEPS)}
-    reader = harness.load_module("metrics", "march_live_pct.kerr")
-    assert reader.read(None) is None         # nothing collected now
+    assert got["counters"] == {
+        "kerr.lanes_live": float(live.sum()),
+        "kerr.lanes_run": float(live.numel() * STEPS),
+        "kerr.lanes_issued": float(32 * live.reshape(-1, 32).amax(1).sum())}
+    for name in ("march_live_pct.kerr", "march_warp_live_pct.kerr"):
+        reader = harness.load_module("metrics", name)
+        assert reader.read(None) is None     # nothing collected now
